@@ -1,0 +1,577 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` per source, all at once), then:
+
+1. kernels: every kernel against its plain PyTorch version on the card,
+   bitwise, over every op and dtype, including the main path's slab shape,
+   and its time (CUDA events, median) beside its memory bound;
+2. collectives at p = 8: every ``all_reduce`` method, the kernel-carried
+   outputs bitwise equal to the same engine with the plain combines and
+   casts, every method within tolerance of a float64 sum, and a
+   non-commutative operator through ``structured_all_reduce`` against the
+   port's simulator;
+3. the main path at the paper's scale, p = 288 ranks stacked on the card
+   and m = 8,388,608 elements each: ``dptree`` in f32 and exactly in int32,
+   and ``hier`` over 36 groups of 8 with the bf16 slow-stage wire. The
+   kernels' launch counters are zeroed just before and read just after,
+   and must show that the kernels carried the path.
+
+It prints the card's name and power limit, one JSON line of kernel numbers,
+and as its last line ``{"ok": true, "device": {...}}``. Any failed check
+raises before that line. Without a CUDA device it exits nonzero and prints
+no result.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+os.environ["REPRO_TORCH_AUTOTUNE"] = "0"   # auto picks from the cost model
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core import (CollectiveConfig, LocalTransport,  # noqa: E402
+                              all_reduce, build_dual_tree, build_hierarchy,
+                              cost_model, dptree, simulate_allreduce,
+                              structured_all_reduce)
+from repro_torch.kernels import _build, block_combine, quantize, ref  # noqa: E402
+
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 rate outside the
+# tensor cores (the combine and cast kernels use no tensor core).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+P_FULL, M_FULL = 288, 8_388_608      # the paper's cluster (cost_model.py)
+P_SMALL, M_SMALL = 8, 1_000_003
+OPS = ("add", "max", "min", "mul")
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i32": torch.int32}
+KERNEL_FILES = {
+    "combine2": ("src/repro_torch/kernels/csrc/block_combine.cu",
+                 "src/repro/kernels/block_combine.py:46"),
+    "combine3": ("src/repro_torch/kernels/csrc/block_combine.cu",
+                 "src/repro/kernels/block_combine.py:50"),
+    "compress_bf16": ("src/repro_torch/kernels/csrc/quantize.cu",
+                      "src/repro/kernels/quantize.py:75"),
+    "decompress_bf16": ("src/repro_torch/kernels/csrc/quantize.cu",
+                        "src/repro/kernels/quantize.py:75"),
+}
+WRAPPERS = {"combine2": block_combine.combine2,
+            "combine3": block_combine.combine3,
+            "compress_bf16": quantize.compress_bf16,
+            "decompress_bf16": quantize.decompress_bf16}
+U = 2.0 ** -24                       # f32 unit roundoff
+# bf16 bit patterns for the head of every max/min operand: +0, -0, quiet and
+# signalling NaNs of both signs, +inf, -inf, 1. Each NaN's payload names
+# its operand (add 0, 1 or 2), so a kernel that returns the wrong one of two
+# NaNs shows. f32 operands take the same patterns in their top 16 bits.
+SPECIALS = (0x0000, 0x8000, 0x7fc1, 0xffc1, 0x7f81, 0xff81, 0x7f80, 0xff80,
+            0x3f80)
+NAN_SLOTS = (2, 3, 4, 5)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def from_words(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Unsigned bit patterns (int64) as the same-width signed integers
+    that ``.view(dtype)`` turns into ``dtype``."""
+    nbits = 8 * torch.empty(0, dtype=dtype).element_size()
+    signed = words - (words >= 2 ** (nbits - 1)).long() * 2 ** nbits
+    return signed.to({16: torch.int16, 32: torch.int32}[nbits])
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def check_bitwise(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    bad = int((bits(got) != bits(want)).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} of {got.numel()} elements "
+                             "differ in bits")
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    if got.numel() == 0:
+        return 0.0
+    d = (got.double() - want.double()).abs()
+    return float(torch.nan_to_num(d, nan=0.0, posinf=0.0).max())
+
+
+def zero_counters() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def counters() -> dict:
+    return {k: w.launches for k, w in WRAPPERS.items()}
+
+
+def time_ms(fn, reps: int = 50) -> float:
+    """Device time of one call: CUDA events around ``reps`` calls issued
+    back to back (so the queue stays full and the host's launch cost hides
+    behind the device's work), divided by ``reps``; median of three such
+    runs."""
+    for _ in range(3):
+        fn()
+    runs = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        runs.append(a.elapsed_time(b) / reps)
+    return float(np.median(runs))
+
+
+def wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def device_breakdown(fn, top: int = 8) -> dict:
+    """One traced run under ``torch.profiler``: the device time of each
+    kernel name, summed, and the device's busy share of the traced wall
+    time (its idle share is the rest). Kernels overlap nothing here (one
+    stream), so the busy time is the sum over kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    if not rows:
+        raise AssertionError("the profiler recorded no device time")
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    return {"traced_wall_ms": secs * 1e3, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / (secs * 1e3)),
+            "top_kernels": [{"name": k[:90], "ms": ms, "count": c}
+                            for k, ms, c in rows[:top]]}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Run the engine with the plain PyTorch combines and casts in place of
+    the kernels (for the bitwise comparison; launches nothing counted)."""
+    saved = (dptree._combine3_local, dptree._compress_wire,
+             dptree._decompress_wire)
+    dptree._combine3_local = \
+        lambda a, b, c, op_name: ref.combine3_ref(a, b, c, op=op_name)
+    dptree._compress_wire = lambda x: ref.compress_bf16_ref(x)
+    dptree._decompress_wire = lambda x: ref.decompress_bf16_ref(x)
+    try:
+        yield
+    finally:
+        (dptree._combine3_local, dptree._compress_wire,
+         dptree._decompress_wire) = saved
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------- kernels
+
+def operand(gen, n, dt, op, dev, which):
+    """Operand ``which`` (0, 1, 2) of a combine. For max and min its first
+    9**3 elements run through every triple of ``SPECIALS`` across the three
+    operands; the rest is randn with 2 % infinities."""
+    if dt == "i32":
+        return torch.randint(-1000, 1001, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    x = torch.randn(n, generator=gen, device=dev)
+    infs = (math.inf, -math.inf) if op in ("max", "min") else (math.inf,)
+    for inf in infs:
+        x[torch.rand(n, generator=gen, device=dev) < 0.02] = inf
+    x = x.to(DTYPES[dt])
+    if op in ("max", "min"):
+        s = len(SPECIALS)
+        k = min(n, s ** 3)
+        words = torch.tensor([w + which if i in NAN_SLOTS else w
+                              for i, w in enumerate(SPECIALS)], device=dev)
+        words = words[(torch.arange(k, device=dev) // s ** which) % s]
+        if dt == "f32":
+            words = words << 16
+        head = from_words(words, x.dtype)
+        x.view(head.dtype)[:k] = head
+    return x
+
+
+def cast_inputs(gen, n, dev):
+    special = torch.tensor([0x7f800000, 0xff800000, 0x7fc00000, 0xffc00000,
+                            0x7f800001, 0x00000001, 0x80000001, 0x007fffff,
+                            0x00008000, 0x00018000, 0x3f808000, 0x3f818000,
+                            0x3f808001, 0x00000000, 0x80000000, 0x7f7fffff],
+                           dtype=torch.int64)  # inf, NaN, subnormal, ties
+    rnd = torch.randint(0, 2 ** 32, (n,), generator=gen, device=dev,
+                        dtype=torch.int64)
+    words = torch.cat([special.to(dev), rnd])
+    return from_words(words, torch.float32).view(torch.float32)
+
+
+def kernel_phase(dev, slab_n: int, slab_shape: tuple, wire_shape: tuple):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sizes = (1, 1000, (1 << 20) + 3, slab_n)
+    errs = {k: 0.0 for k in WRAPPERS}
+    checks = 0
+    for op in OPS:
+        for dt in DTYPES:
+            for n in sizes:
+                a, b, c = (operand(gen, n, dt, op, dev, i) for i in range(3))
+                for x, y, z in ((a, b, c), (a[1:], b[1:], c[1:])):
+                    got3 = block_combine.combine3(x, y, z, op=op)
+                    want3 = ref.combine3_ref(x, y, z, op=op)
+                    got2 = block_combine.combine2(x, y, op=op)
+                    want2 = ref.combine2_ref(x, y, op=op)
+                    check_bitwise(got3, want3, f"combine3 {op} {dt} n={n}")
+                    check_bitwise(got2, want2, f"combine2 {op} {dt} n={n}")
+                    errs["combine3"] = max(errs["combine3"],
+                                           max_abs_err(got3, want3))
+                    errs["combine2"] = max(errs["combine2"],
+                                           max_abs_err(got2, want2))
+                    checks += 2
+    every = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).to(dev)
+    for n in sizes:
+        x = cast_inputs(gen, n, dev)
+        h, want = quantize.compress_bf16(x), ref.compress_bf16_ref(x)
+        check_bitwise(h, want, f"compress_bf16 n={n}")
+        errs["compress_bf16"] = max(errs["compress_bf16"], max_abs_err(h, want))
+        for src in (h, every):
+            back = quantize.decompress_bf16(src)
+            want = ref.decompress_bf16_ref(src)
+            check_bitwise(back, want, f"decompress_bf16 n={n}")
+            errs["decompress_bf16"] = max(errs["decompress_bf16"],
+                                          max_abs_err(back, want))
+        checks += 3
+    torch.cuda.synchronize()
+
+    # ---- the shapes the main path gives each kernel: checked, then timed --
+    a, b, c = (torch.randn(slab_shape, generator=gen, device=dev)
+               for _ in range(3))
+    n = a.numel()
+    w = torch.randn(wire_shape, generator=gen, device=dev)
+    wh = w.to(torch.bfloat16)
+    nw = w.numel()
+    for name, got, want in (
+            ("combine3", block_combine.combine3(a, b, c),
+             ref.combine3_ref(a, b, c)),
+            ("combine2", block_combine.combine2(a, b), ref.combine2_ref(a, b)),
+            ("compress_bf16", quantize.compress_bf16(w),
+             ref.compress_bf16_ref(w)),
+            ("decompress_bf16", quantize.decompress_bf16(wh),
+             ref.decompress_bf16_ref(wh))):
+        check_bitwise(got, want, f"{name} at {list(got.shape)}")
+        errs[name] = max(errs[name], max_abs_err(got, want))
+        checks += 1
+        del got, want
+    torch.cuda.synchronize()
+    log(f"kernels: {checks} bitwise checks against the plain versions passed")
+    work = {  # name: (kernel, plain, library call or None, bytes, ops)
+        "combine3": (lambda: block_combine.combine3(a, b, c),
+                     lambda: ref.combine3_ref(a, b, c), None,
+                     16 * n, 2 * n),
+        "combine2": (lambda: block_combine.combine2(a, b),
+                     lambda: ref.combine2_ref(a, b),
+                     lambda: torch.add(a, b), 12 * n, n),
+        "compress_bf16": (lambda: quantize.compress_bf16(w),
+                          lambda: ref.compress_bf16_ref(w),
+                          lambda: w.to(torch.bfloat16), 6 * nw, nw),
+        "decompress_bf16": (lambda: quantize.decompress_bf16(wh),
+                            lambda: ref.decompress_bf16_ref(wh),
+                            lambda: wh.to(torch.float32), 6 * nw, nw),
+    }
+    rows = {}
+    for name, (kern, plain, lib, nbytes, nops) in work.items():
+        t_k, t_p = time_ms(kern), time_ms(plain)
+        t_l = time_ms(lib) if lib is not None else None
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / F32_OPS_PER_S * 1e3
+        src, replaces = KERNEL_FILES[name]
+        rows[name] = {"name": name, "route": "cuda", "source": src,
+                      "replaces": replaces, "launches": None,
+                      "max_abs_err": errs[name], "ms": t_k,
+                      "plain_ms": t_p, "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "library_ms": t_l,
+                      "shape": list(slab_shape if name.startswith("combine")
+                                    else wire_shape)}
+        log(f"  {name:16s} {rows[name]['shape']}: kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, bound {rows[name]['bound_ms']:.4f} ms "
+            f"({rows[name]['bound_by']})"
+            + (f", library {t_l:.4f} ms" if t_l is not None else ""))
+    del a, b, c, w, wh
+    return rows
+
+
+# ------------------------------------------------------------- collectives
+
+def f64_check(out: torch.Tensor, X: torch.Tensor, rel: float, what: str,
+              cols: int = 1 << 20) -> float:
+    """|out - sum| <= rel * sum|x| per column, the float64 sum taken in
+    column chunks so that no (p, m) float64 buffer is needed. Returns the
+    largest error as a share of sum|x|."""
+    worst = 0.0
+    for c0 in range(0, X.shape[1], cols):
+        xs = X[:, c0:c0 + cols].double()
+        want = xs.sum(0)
+        scale = xs.abs().sum(0).clamp_min(1e-30)
+        err = (out[:, c0:c0 + cols].double() - want).abs() / scale
+        worst = max(worst, float(err.max()))
+        del xs
+    if not worst <= rel:
+        raise AssertionError(f"{what}: error {worst:.3e} of sum|x| exceeds "
+                             f"{rel:.3e}")
+    return worst
+
+
+def same_rows(out: torch.Tensor, what: str) -> None:
+    if not bool((bits(out) == bits(out[:1])).all()):
+        raise AssertionError(f"{what}: ranks disagree")
+
+
+def mm(a, b):
+    """2x2 matrix product per slot, written out (no fused multiply-add)."""
+    e = lambda i, j: a[..., i, 0] * b[..., 0, j] + a[..., i, 1] * b[..., 1, j]
+    return torch.stack([torch.stack([e(i, 0), e(i, 1)], -1)
+                        for i in range(2)], -2)
+
+
+def mm_np(a, b):
+    e = lambda i, j: a[..., i, 0] * b[..., 0, j] + a[..., i, 1] * b[..., 1, j]
+    return np.stack([np.stack([e(i, 0), e(i, 1)], -1) for i in range(2)], -2)
+
+
+def small_phase(dev):
+    p, m = P_SMALL, M_SMALL
+    comm = LocalTransport(p, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    X = torch.randn((p, m), generator=gen, device=dev)
+    h2 = int(math.ceil(math.log2(p)))
+    methods = {
+        "dptree": (CollectiveConfig(method="dptree"), (2 * h2 + 4) * U),
+        "sptree": (CollectiveConfig(method="sptree"), (2 * h2 + 4) * U),
+        "redbcast": (CollectiveConfig(method="redbcast"), (2 * h2 + 4) * U),
+        "ring": (CollectiveConfig(method="ring"), p * U),
+        "hier(4,)": (CollectiveConfig(method="hier", group_size=4),
+                     (2 * h2 + 4) * U),
+        "hier(2,2)": (CollectiveConfig(method="hier", group_size=(2, 2)),
+                      (2 * h2 + 4) * U),
+        "hier(4,)+bf16": (CollectiveConfig(method="hier", group_size=4,
+                                           compress_inter_group=True),
+                          (2 + 1) * 2.0 ** -8),
+        "psum": (CollectiveConfig(method="psum"), p * U),
+        "auto": (CollectiveConfig(method="auto"), (2 * h2 + 4) * U),
+    }
+    for name, (cfg, rel) in methods.items():
+        out = all_reduce(X, comm, cfg)
+        with plain_kernels():
+            plain = all_reduce(X, comm, cfg)
+        check_bitwise(out, plain, f"p={p} {name}: kernels vs plain")
+        worst = f64_check(out, X, rel, f"p={p} {name}")
+        log(f"  p={p} m={m} {name:14s} bitwise = plain, error "
+            f"{worst:.2e} of sum|x| (limit {rel:.2e})")
+    # exact int32 and the other fused ops
+    Xi = torch.randint(-1000, 1001, (p, m), generator=gen, device=dev,
+                       dtype=torch.int32)
+    out = all_reduce(Xi, comm, CollectiveConfig(method="dptree"))
+    if not bool((out == Xi.sum(0, dtype=torch.int32)).all()):
+        raise AssertionError("p=8 int32 dptree is not exact")
+    for op, want in (("max", X.amax(0)), ("min", X.amin(0))):
+        got = all_reduce(X, comm, CollectiveConfig(method="dptree"), op=op)
+        check_bitwise(got, want.expand_as(got), f"p={p} dptree {op}")
+    # a non-commutative operator on the general path, against the simulator
+    rng = np.random.default_rng(3)
+    Xm = (rng.standard_normal((p, 64, 2, 2)) * 0.3 + np.eye(2)).astype(
+        np.float32)
+    sim = simulate_allreduce([Xm[i].reshape(-1) for i in range(p)], 1,
+                             op=lambda a, b: mm_np(a.reshape(-1, 2, 2),
+                                                   b.reshape(-1, 2, 2))
+                             .reshape(-1))
+    got = structured_all_reduce({"m": torch.from_numpy(Xm).to(dev)}, comm,
+                                lambda a, b: {"m": mm(a["m"], b["m"])})["m"]
+    got = got.reshape(p, -1).cpu().numpy()
+    want = np.stack(sim.outputs)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    log(f"  p={p} structured 2x2-matmul vs simulator: max diff "
+        f"{np.abs(got - want).max():.2e} (bitwise: "
+        f"{np.array_equal(got.view(np.int32), want.view(np.int32))})")
+    log("  p=8 int32 exact, max/min bitwise: ok")
+
+
+def full_phase(dev):
+    p, m = P_FULL, M_FULL
+    comm = LocalTransport(p, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    nbytes = m * 4
+    nb = cost_model.optimal_blocks(p, float(nbytes), cost_model.PAPER_HYDRA,
+                                   "dptree")
+    topo = build_dual_tree(p)
+    fused_steps = topo.num_macro_rounds(nb) * len(topo.active_classes())
+    log(f"  p={p} m={m}: optimal_blocks = {nb} (block {-(-m // nb)} "
+        f"elements), {fused_steps} fused steps")
+    results = {}
+
+    # -- dptree, f32 ---------------------------------------------------------
+    X = torch.randn((p, m), generator=gen, device=dev)
+    cfg = CollectiveConfig(method="dptree")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    out, secs = wall(lambda: all_reduce(X, comm, cfg))
+    got = counters()
+    if got["combine3"] != fused_steps:
+        raise AssertionError(f"dptree f32: combine3 launched "
+                             f"{got['combine3']} times, want {fused_steps}")
+    peak = torch.cuda.max_memory_allocated()
+    same_rows(out, "dptree f32")
+    worst = f64_check(out, X, (2 * topo.max_depth + 4) * U, "dptree f32")
+    results["dptree_f32"] = {"seconds": secs, "launches": got,
+                             "max_memory_bytes": peak,
+                             "err_share_of_abs_sum": worst}
+    log(f"  dptree f32: {secs:.3f} s, launches {got}, peak memory "
+        f"{peak / 2**30:.2f} GiB, error {worst:.2e} of sum|x|")
+    with plain_kernels():
+        plain = all_reduce(X, comm, cfg)
+    check_bitwise(out, plain, "dptree f32: kernels vs plain")
+    log("  dptree f32: bitwise equal to the engine with the plain combines")
+    del out, plain
+    # The kernel against the plain combines end to end, in turns (plain,
+    # kernel, kernel, plain) so that neither side gets the first call.
+    ab = {"kernel": [], "plain": []}
+    for side in ("plain", "kernel", "kernel", "plain"):
+        with plain_kernels() if side == "plain" else contextlib.nullcontext():
+            ab[side].append(wall(lambda: all_reduce(X, comm, cfg))[1])
+    results["dptree_f32_turns_seconds"] = ab
+    log(f"  dptree f32 in turns (plain, kernel, kernel, plain): kernel "
+        f"{ab['kernel']} s, plain combines {ab['plain']} s")
+    results["dptree_f32_trace"] = trace = device_breakdown(
+        lambda: all_reduce(X, comm, cfg))
+    log(f"  dptree f32 traced: {json.dumps(trace)}")
+
+    # -- hier, 36 groups of 8, bf16 slow-stage wire ---------------------------
+    hcfg = CollectiveConfig(method="hier", group_size=8,
+                            compress_inter_group=True)
+    h = build_hierarchy(p, 8)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    out, secs = wall(lambda: all_reduce(X, comm, hcfg))
+    got = counters()
+    if (got["compress_bf16"], got["decompress_bf16"], got["combine3"]) != \
+            (1, 1, 0):
+        raise AssertionError(f"hier bf16: launches {got}, want one cast each "
+                             "way and no combine3 (wire combines run in f32)")
+    peak = torch.cuda.max_memory_allocated()
+    g = h.num_groups
+    rel = (2 + int(math.ceil(math.log2(g)))) * 2.0 ** -8
+    same_rows(out, "hier bf16")
+    worst = f64_check(out, X, rel, "hier bf16")
+    hb = cost_model.optimal_blocks(p, float(nbytes), cost_model.PAPER_HYDRA,
+                                   "hier", group_size=8, compression="bf16")
+    results["hier_bf16"] = {"seconds": secs, "launches": got,
+                            "num_blocks": hb, "max_memory_bytes": peak,
+                            "err_share_of_abs_sum": worst}
+    log(f"  hier (8,) bf16 wire, {g} groups, {hb} blocks: {secs:.3f} s, "
+        f"launches {got}, peak {peak / 2**30:.2f} GiB, error {worst:.2e} of "
+        f"sum|x| (limit {rel:.2e})")
+    with plain_kernels():
+        plain = all_reduce(X, comm, hcfg)
+    check_bitwise(out, plain, "hier bf16: kernels vs plain")
+    log("  hier bf16: bitwise equal to the engine with the plain casts")
+    del out, plain
+    results["hier_bf16_trace"] = trace = device_breakdown(
+        lambda: all_reduce(X, comm, hcfg))
+    log(f"  hier bf16 traced: {json.dumps(trace)}")
+    del X
+
+    # -- dptree, int32, exact -------------------------------------------------
+    Xi = torch.randint(-1000, 1001, (p, m), generator=gen, device=dev,
+                       dtype=torch.int32)
+    zero_counters()
+    out, secs = wall(lambda: all_reduce(Xi, comm, cfg))
+    got = counters()
+    nb_i = cost_model.optimal_blocks(p, float(nbytes), cost_model.PAPER_HYDRA,
+                                     "dptree")
+    want_steps = topo.num_macro_rounds(nb_i) * len(topo.active_classes())
+    if got["combine3"] != want_steps:
+        raise AssertionError(f"dptree int32: combine3 launched "
+                             f"{got['combine3']} times, want {want_steps}")
+    ref_sum = Xi.sum(0, dtype=torch.int32)
+    if not bool((out == ref_sum).all()):
+        raise AssertionError("dptree int32 is not exact")
+    results["dptree_i32"] = {"seconds": secs, "launches": got}
+    log(f"  dptree int32: {secs:.3f} s, launches {got}, exact")
+    del out, Xi
+    return results
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    built = _build.build()
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'})")
+
+    nb = cost_model.optimal_blocks(P_FULL, float(M_FULL * 4),
+                                   cost_model.PAPER_HYDRA, "dptree")
+    blk = -(-M_FULL // nb)
+    wire = (P_FULL, M_FULL // 8)        # hier's slow-stage stripe, per rank
+    log("phase 1: kernels")
+    rows = kernel_phase(dev, P_FULL * blk, (P_FULL, blk), wire)
+    log("phase 2: collectives, every method")
+    small_phase(dev)
+    log("phase 3: the main path at the paper's scale")
+    full = full_phase(dev)
+    main_launches = {k: full["dptree_f32"]["launches"][k]
+                     + full["hier_bf16"]["launches"][k]
+                     + full["dptree_i32"]["launches"][k] for k in WRAPPERS}
+    for name in ("combine3", "compress_bf16", "decompress_bf16"):
+        if main_launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    for name, row in rows.items():
+        row["launches"] = main_launches[name]
+    log("main path: " + json.dumps(full))
+    log(json.dumps({"kernels": list(rows.values())}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

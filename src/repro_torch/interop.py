@@ -1,0 +1,61 @@
+"""Carry the reference's host-side state into the port.
+
+This slice has no weights: the state that crosses from ``repro`` to
+``repro_torch`` is the topology constants and the cost model's fields.
+:func:`from_reference` takes them as plain dicts of numpy arrays and numbers
+(``dataclasses.asdict`` of the reference's ``TreeTopology``,
+``HierarchicalTopology`` or ``CommModel``) and builds the port's object,
+without importing ``repro``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.cost_model import CommModel
+from repro_torch.core.topology import HierarchicalTopology, TreeTopology
+
+__all__ = ["from_reference"]
+
+_TREE_ARRAYS = ("parent", "child0", "child1", "depth", "phi", "tree_id")
+
+
+def _pairs(classes) -> tuple:
+    return tuple(tuple((int(s), int(d)) for s, d in cls) for cls in classes)
+
+
+def _tree(f: dict) -> TreeTopology:
+    arrays = {k: np.asarray(f[k], dtype=np.int32) for k in _TREE_ARRAYS}
+    return TreeTopology(p=int(f["p"]), dual=bool(f["dual"]),
+                        roots=tuple(int(r) for r in f["roots"]),
+                        up_pairs=_pairs(f["up_pairs"]),
+                        down_pairs=_pairs(f["down_pairs"]), **arrays)
+
+
+def _hierarchy(f: dict) -> HierarchicalTopology:
+    return HierarchicalTopology(
+        p=int(f["p"]), levels=tuple(int(s) for s in f["levels"]),
+        strides=tuple(int(s) for s in f["strides"]),
+        group_size=int(f["group_size"]), num_groups=int(f["num_groups"]),
+        group_tree=_tree(f["group_tree"]), inter_topo=_tree(f["inter_topo"]),
+        level_rings=tuple((tuple((int(a), int(b)) for a, b in fwd),
+                           tuple((int(a), int(b)) for a, b in bwd))
+                          for fwd, bwd in f["level_rings"]))
+
+
+def from_reference(fields: dict):
+    """The port's counterpart of a reference object given as a field dict:
+    a :class:`CommModel` (keys ``alpha``, ``beta``, ...), a
+    :class:`HierarchicalTopology` (``levels``, ``inter_topo``, ...) or a
+    :class:`TreeTopology` (``parent``, ``phi``, ...)."""
+    if "alpha" in fields:
+        return CommModel(alpha=float(fields["alpha"]),
+                         beta=float(fields["beta"]),
+                         gamma=float(fields.get("gamma", 0.0)),
+                         name=str(fields.get("name", "custom")))
+    if "levels" in fields:
+        return _hierarchy(fields)
+    if "parent" in fields:
+        return _tree(fields)
+    raise ValueError(f"not a reference topology or CommModel: "
+                     f"keys {sorted(fields)}")

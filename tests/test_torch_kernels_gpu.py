@@ -1,0 +1,114 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Bitwise, NaN bits included: each kernel and its plain version run on the
+same device on the same inputs (made by numpy from a seed). The file imports
+no JAX, so it runs on the machine with the card:
+``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
+Without a card every test skips (a CUDA kernel has no CPU mode).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import block_combine, quantize, ref
+
+pytestmark = pytest.mark.gpu
+
+OPS = ["add", "max", "min", "mul"]
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i32": torch.int32}
+SIZES = [1, 1000, (1 << 20) + 3]
+# bf16 bit patterns at the head of every max/min operand: +0, -0, quiet and
+# signalling NaNs of both signs, +inf, -inf, 1. Each NaN's payload names its
+# operand (add 0, 1 or 2). f32 operands take them in their top 16 bits.
+SPECIALS = np.array([0x0000, 0x8000, 0x7fc1, 0xffc1, 0x7f81, 0xff81, 0x7f80,
+                     0xff80, 0x3f80], np.uint32)
+NAN_SLOTS = [2, 3, 4, 5]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _operand(rng, n, dt, op, device, which):
+    """Operand ``which`` (0, 1, 2) of a combine. For max and min its first
+    9**3 elements run through every triple of ``SPECIALS`` across the three
+    operands."""
+    if dt == "i32":
+        v = torch.from_numpy(rng.integers(-1000, 1001, size=n).astype(np.int32))
+    else:
+        x = rng.standard_normal(n).astype(np.float32)
+        # both signs of infinity for max/min; +inf only for add/mul
+        for inf in ((np.inf, -np.inf) if op in ("max", "min") else (np.inf,)):
+            x[rng.random(n) < 0.02] = inf
+        v = torch.from_numpy(x).to(DTYPES[dt])
+        if op in ("max", "min"):
+            words = SPECIALS.copy()
+            words[NAN_SLOTS] += which
+            k = min(n, len(words) ** 3)
+            words = words[(np.arange(k) // len(words) ** which) % len(words)]
+            if dt == "f32":
+                v.view(torch.int32)[:k] = torch.from_numpy(
+                    (words << 16).view(np.int32))
+            else:
+                v.view(torch.int16)[:k] = torch.from_numpy(
+                    words.astype(np.uint16).view(np.int16))
+    return v.to(device)
+
+
+def _assert_bitwise(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    assert torch.equal(got.contiguous().view(ints), want.contiguous().view(ints))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("op", OPS)
+def test_combine_kernels_match_plain(op, dt, n, cuda):
+    rng = np.random.default_rng(n + 7)
+    a, b, c = (_operand(rng, n, dt, op, cuda, i) for i in range(3))
+    before = (block_combine.combine2.launches,
+              block_combine.combine3.launches)
+    got3 = block_combine.combine3(a, b, c, op=op)
+    got2 = block_combine.combine2(a, b, op=op)
+    torch.cuda.synchronize()
+    assert (block_combine.combine2.launches,
+            block_combine.combine3.launches) == (before[0] + 1, before[1] + 1)
+    _assert_bitwise(got3, ref.combine3_ref(a, b, c, op=op))
+    _assert_bitwise(got2, ref.combine2_ref(a, b, op=op))
+    # views one element in are not 16-byte aligned: the scalar path
+    _assert_bitwise(block_combine.combine3(a[1:], b[1:], c[1:], op=op),
+                    ref.combine3_ref(a[1:], b[1:], c[1:], op=op))
+
+
+def _cast_inputs(rng, n):
+    special = np.array([0x7f800000, 0xff800000, 0x7fc00000, 0xffc00000,
+                        0x7f800001, 0x00000001, 0x80000001, 0x007fffff,
+                        0x00008000, 0x00018000, 0x3f808000, 0x3f818000,
+                        0x3f808001, 0x00000000, 0x80000000, 0x7f7fffff],
+                       np.uint32)   # inf, NaN, subnormals, ties, zeros, max
+    bits = rng.integers(0, 2 ** 32, size=n, dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(np.concatenate([special, bits]).view(np.float32))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_cast_kernels_match_plain(n, cuda):
+    x = _cast_inputs(np.random.default_rng(n), n).to(cuda)
+    h = quantize.compress_bf16(x)
+    _assert_bitwise(h, ref.compress_bf16_ref(x))
+    every = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    every = every.view(torch.bfloat16).to(cuda)   # all 65536 bf16 patterns
+    for src in (h, every):
+        _assert_bitwise(quantize.decompress_bf16(src),
+                        ref.decompress_bf16_ref(src))
+
+
+def test_launch_counters_count_only_launches(cuda):
+    before = block_combine.combine2.launches
+    empty = torch.empty(0, device=cuda)
+    assert block_combine.combine2(empty, empty).numel() == 0
+    assert block_combine.combine2.launches == before
