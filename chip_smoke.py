@@ -12,12 +12,24 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    casts, every method within tolerance of a float64 sum, and a
    non-commutative operator through ``structured_all_reduce`` against the
    port's simulator;
-3. the main path at the paper's scale, p = 288 ranks stacked on the card
-   and m = 8,388,608 elements each: ``dptree`` in f32 and exactly in int32,
-   and ``hier`` over 36 groups of 8 with the bf16 slow-stage wire. The
-   kernels' launch counters are zeroed just before and read just after,
-   and must show that the kernels carried the path.
+3. the collective main path at the paper's scale, p = 288 ranks stacked
+   on the card and m = 8,388,608 elements each: ``dptree`` in f32 and
+   exactly in int32, and ``hier`` over 36 groups of 8 with the bf16
+   slow-stage wire;
+4. the int8 K/V kernels against their plain versions, bitwise, over widths
+   12/64/128/256, f32 and bf16 inputs, zero rows, .5 ties, codes at +-127
+   and unaligned codes, then at the decode path's own shapes (one token's
+   (576, 64) bf16 rows; the whole (4,718,592, 64) int8 ring to bf16), timed;
+5. the serving main path at full width: MiniCPM-2B (40 layers, d_model
+   2304, 36 heads, 36 K/V heads, vocab 122,753) with bf16 weights and the
+   int8 K/V cache, through the port's ``serve_loop``: batch 16, a ring of
+   8192, 32 greedy steps, its tokens and logits bitwise equal to the same
+   run with the plain int8 versions, and a reduced MiniCPM-2B on the card
+   within bf16 tolerance of the port on the CPU (which the CPU tests hold
+   against the JAX package).
 
+In phases 3 and 5 the kernels' launch counters are zeroed just before the
+main path and read just after, and must show that the kernels carried it.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
 raises before that line. Without a CUDA device it exits nonzero and prints
@@ -26,6 +38,7 @@ no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
@@ -45,7 +58,10 @@ from repro_torch.core import (CollectiveConfig, LocalTransport,  # noqa: E402
                               all_reduce, build_dual_tree, build_hierarchy,
                               cost_model, dptree, simulate_allreduce,
                               structured_all_reduce)
+from repro_torch.configs.base import decode_config, get_config  # noqa: E402
 from repro_torch.kernels import _build, block_combine, quantize, ref  # noqa: E402
+from repro_torch.launch import serve, step_fns  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 rate outside the
 # tensor cores (the combine and cast kernels use no tensor core).
@@ -65,11 +81,20 @@ KERNEL_FILES = {
                       "src/repro/kernels/quantize.py:75"),
     "decompress_bf16": ("src/repro_torch/kernels/csrc/quantize.cu",
                         "src/repro/kernels/quantize.py:75"),
+    "quantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu",
+                      "src/repro/kernels/quantize.py:32"),
+    "dequantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu",
+                        "src/repro/kernels/quantize.py:41"),
 }
 WRAPPERS = {"combine2": block_combine.combine2,
             "combine3": block_combine.combine3,
             "compress_bf16": quantize.compress_bf16,
-            "decompress_bf16": quantize.decompress_bf16}
+            "decompress_bf16": quantize.decompress_bf16,
+            "quantize_int8": quantize.quantize_int8,
+            "dequantize_int8": quantize.dequantize_int8}
+# phase 5: MiniCPM-2B decode, cut from the reference's decode_32k cell
+# (batch 128, 32,768 cached tokens) to what one 80 GB card holds
+DECODE = dict(arch="minicpm_2b", batch=16, cache_len=8192, steps=32, seed=0)
 U = 2.0 ** -24                       # f32 unit roundoff
 # bf16 bit patterns for the head of every max/min operand: +0, -0, quiet and
 # signalling NaNs of both signs, +inf, -inf, 1. Each NaN's payload names
@@ -93,7 +118,8 @@ def from_words(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    return t.contiguous().view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    return t.contiguous().view({1: torch.int8, 2: torch.int16,
+                                4: torch.int32}[t.element_size()])
 
 
 def check_bitwise(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
@@ -191,6 +217,20 @@ def plain_kernels():
     finally:
         (dptree._combine3_local, dptree._compress_wire,
          dptree._decompress_wire) = saved
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Run the K/V cache with the plain int8 quantize/dequantize in place of
+    the kernels (the model reaches them through ``kernels.ops``, which looks
+    the wrappers up at each call)."""
+    saved = (quantize.quantize_int8, quantize.dequantize_int8)
+    quantize.quantize_int8 = ref.quantize_int8_ref
+    quantize.dequantize_int8 = ref.dequantize_int8_ref
+    try:
+        yield
+    finally:
+        quantize.quantize_int8, quantize.dequantize_int8 = saved
 
 
 def card_line() -> str:
@@ -533,6 +573,249 @@ def full_phase(dev):
     del out, Xi
     return results
 
+# ------------------------------------------------------------ int8 K/V rows
+
+def int8_rows(gen, rows: int, width: int, dev) -> torch.Tensor:
+    """f32 rows at scales 1e-3..1e3, then adversarial rows: zeros; absmax
+    127 (scale exactly 1.0) with exact .5 ties of x/scale of both signs;
+    +-absmax (codes +-127); a row under the 1e-8 floor."""
+    x = torch.randn((rows, width), generator=gen, device=dev)
+    x *= 10.0 ** (torch.rand((rows, 1), generator=gen, device=dev) * 6 - 3)
+    special = [[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 3.5,
+                -3.5, 64.5], [-3.0, 3.0, 1.0, -1.0], [4e-9, -2e-9, 1e-12, 0.0],
+               [0.0]]
+    tail = [torch.tensor(r, device=dev).repeat(-(-width // len(r)))[:width]
+            for r in special]
+    return torch.cat([x, torch.stack(tail)])
+
+
+def check_int8(x: torch.Tensor, errs: dict, what: str) -> int:
+    """Both kernels on ``x`` against the plain versions, bitwise; returns
+    the number of checks."""
+    q, s = quantize.quantize_int8(x)
+    qr, sr = ref.quantize_int8_ref(x)
+    check_bitwise(q, qr, f"quantize_int8 codes {what}")
+    check_bitwise(s, sr, f"quantize_int8 scales {what}")
+    errs["quantize_int8"] = max(errs["quantize_int8"],
+                                max_abs_err(q.float(), qr.float()),
+                                max_abs_err(s, sr))
+    checks = 2
+    for dt in (torch.float32, torch.bfloat16):
+        got = quantize.dequantize_int8(q, s, dt)
+        want = ref.dequantize_int8_ref(q, s, dt)
+        check_bitwise(got, want, f"dequantize_int8 to {dt} {what}")
+        errs["dequantize_int8"] = max(errs["dequantize_int8"],
+                                      max_abs_err(got, want))
+        checks += 1
+    # codes one byte into a buffer: not 16-byte aligned, the scalar path
+    buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=q.device)
+    qu = buf[1:].view(q.shape)
+    qu.copy_(q)
+    got = quantize.dequantize_int8(qu, s, torch.bfloat16)
+    want = ref.dequantize_int8_ref(q, s, torch.bfloat16)
+    check_bitwise(got, want, f"dequantize_int8 unaligned {what}")
+    errs["dequantize_int8"] = max(errs["dequantize_int8"],
+                                  max_abs_err(got, want))
+    return checks + 1
+
+
+def int8_phase(dev, token_rows: int, ring_rows: int, width: int) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs = {"quantize_int8": 0.0, "dequantize_int8": 0.0}
+    checks = 0
+    for w in (12, 64, 128, 256):
+        for dt in (torch.float32, torch.bfloat16):
+            x = int8_rows(gen, 4096, w, dev).to(dt)
+            checks += check_int8(x, errs, f"width {w} {dt}")
+    # the decode path's shapes: one token's K rows (batch x kv heads, bf16)
+    # and the whole int8 ring of one layer's K, made by the kernel itself
+    xt = torch.randn((token_rows, width), generator=gen, device=dev).to(
+        torch.bfloat16)
+    checks += check_int8(xt, errs, f"{list(xt.shape)}")
+    ring = torch.randn((ring_rows, width), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, s = quantize.quantize_int8(ring)
+    qr, sr = ref.quantize_int8_ref(ring)
+    check_bitwise(q, qr, f"quantize_int8 codes {list(ring.shape)}")
+    check_bitwise(s, sr, f"quantize_int8 scales {list(ring.shape)}")
+    del ring, qr, sr
+    got = quantize.dequantize_int8(q, s, torch.bfloat16)
+    want = ref.dequantize_int8_ref(q, s, torch.bfloat16)
+    check_bitwise(got, want, f"dequantize_int8 {list(q.shape)} to bf16")
+    errs["dequantize_int8"] = max(errs["dequantize_int8"],
+                                  max_abs_err(got, want))
+    checks += 3
+    del got, want
+    torch.cuda.synchronize()
+    log(f"  int8: {checks} bitwise checks against the plain versions passed")
+    nt, nr = xt.numel(), q.numel()
+    # name: (kernel, plain, bytes, ops, shape); ops: |x|, max, divide,
+    # round per element (quantize), one product per element (dequantize)
+    work = {
+        "quantize_int8": (lambda: quantize.quantize_int8(xt),
+                          lambda: ref.quantize_int8_ref(xt),
+                          2 * nt + nt + 4 * token_rows, 4 * nt,
+                          list(xt.shape)),
+        "dequantize_int8": (
+            lambda: quantize.dequantize_int8(q, s, torch.bfloat16),
+            lambda: ref.dequantize_int8_ref(q, s, torch.bfloat16),
+            nr + 4 * ring_rows + 2 * nr, nr, list(q.shape)),
+    }
+    rows = {}
+    for name, (kern, plain, nbytes, nops, shape) in work.items():
+        t_k, t_p = time_ms(kern), time_ms(plain)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / F32_OPS_PER_S * 1e3
+        src, replaces = KERNEL_FILES[name]
+        rows[name] = {"name": name, "route": "cuda", "source": src,
+                      "replaces": replaces, "launches": None,
+                      "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_p,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations",
+                      "library_ms": None, "shape": shape}
+        log(f"  {name:16s} {shape}: kernel {t_k:.4f} ms, plain {t_p:.4f} "
+            f"ms, bound {rows[name]['bound_ms']:.4f} ms "
+            f"({rows[name]['bound_by']}, {nbytes} bytes)")
+    # no single PyTorch call dequantizes; the nearest is three calls
+    t3 = time_ms(lambda: q.float().mul_(s).to(torch.bfloat16))
+    log(f"  dequantize_int8 three-call q.float().mul_(s).to(bf16): "
+        f"{t3:.4f} ms")
+    rows["dequantize_int8"]["three_call_ms"] = t3
+    del q, s, xt
+    return rows
+
+
+# ------------------------------------------------------- the decode path
+
+def serve_args(**kw) -> argparse.Namespace:
+    return argparse.Namespace(**{**DECODE, "reduced": False,
+                                 "device": "cuda", **kw})
+
+
+def decode_phase(dev) -> dict:
+    cfg = decode_config(get_config(DECODE["arch"]))
+    if not cfg.kv_quant:
+        raise AssertionError("MiniCPM-2B's decode config has no int8 cache")
+    args = serve_args()
+    B, S, steps, L = args.batch, args.cache_len, args.steps, cfg.n_layers
+    ring_bytes = 2 * L * B * S * cfg.n_kv_heads * cfg.hdim
+    log(f"  {cfg.name}: {L} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab_size}; batch {B}, "
+        f"ring {S}, {steps} steps; int8 ring {ring_bytes / 1e9:.2f} GB")
+    params = tf.init_params(cfg, args.seed, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    run = serve.serve_loop(args, cfg, params, keep_logits=True)
+    torch.cuda.synchronize()
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = 2 * L * steps
+    if (launches["quantize_int8"], launches["dequantize_int8"]) != \
+            (want, want):
+        raise AssertionError(f"decode launches {launches}: want {want} of "
+                             "each int8 kernel (K and V, every layer, every "
+                             "step)")
+    logits = run.logits
+    if logits.shape != (steps, B, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"decode logits {tuple(logits.shape)}: not "
+                             "finite or of the wrong shape")
+    with plain_int8():
+        plain = serve.serve_loop(args, cfg, params, keep_logits=True)
+    if not np.array_equal(run.tokens, plain.tokens):
+        raise AssertionError("decode tokens differ from the plain int8 run")
+    check_bitwise(logits, plain.logits, "decode logits vs the plain int8 run")
+    del plain
+    secs = run.step_seconds
+    steady = float(np.median(secs[1:]))
+    res = {"params": n_params, "int8_ring_bytes": ring_bytes,
+           "launches": launches, "max_memory_bytes": peak,
+           "first_step_s": secs[0], "median_step_s": steady,
+           "total_s": run.seconds,
+           "tokens_per_s": B * steps / run.seconds,
+           "steady_tokens_per_s": B / steady}
+    log(f"  decode: {steps} steps in {run.seconds:.3f} s, first step "
+        f"{secs[0]:.3f} s, median step {steady * 1e3:.2f} ms, "
+        f"{res['tokens_per_s']:.1f} tok/s ({res['steady_tokens_per_s']:.1f} "
+        f"steady), peak memory {peak / 1e9:.2f} GB, launches {launches}")
+    log("  decode: tokens and logits bitwise equal to the plain int8 run")
+    del run, logits
+    # one step traced, on a fresh ring after a warm-up step
+    step = step_fns.make_serve_step(cfg)
+    caches = tf.init_cache(cfg, B, S, device=dev)
+    inputs = {"tokens": torch.zeros((B, 1), dtype=torch.int64, device=dev)}
+    step(params, inputs, caches)
+    res["trace"] = trace = device_breakdown(
+        lambda: step(params, inputs, caches), top=10)
+    log(f"  decode step traced: {json.dumps(trace)}")
+    del caches, params
+    torch.cuda.empty_cache()
+    res["reduced_vs_cpu"] = reduced_check(dev)
+    return res
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    return [tree]
+
+
+def reduced_check(dev) -> dict:
+    """Reduced MiniCPM-2B with the int8 cache on the card against the port
+    on the CPU, the same params: logits within 6 * 2**-8 of the largest
+    (the bf16 tolerance the CPU tests hold the port to against the JAX
+    package), and the same greedy token wherever the CPU's top-2 margin
+    exceeds twice that, over the steps whose inputs were still equal."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        decode_config(get_config(DECODE["arch"], reduced=True)),
+        kv_quant=True)
+    small = dict(reduced=True, batch=4, cache_len=16, steps=8)
+    cpu = tf.init_params(cfg, 0, "cpu")
+    zero_counters()
+    card = serve.serve_loop(serve_args(**small), cfg, _to(cpu, dev),
+                            keep_logits=True)
+    if counters()["dequantize_int8"] == 0:
+        raise AssertionError("the reduced run did not launch the kernels")
+    host = serve.serve_loop(serve_args(**small, device="cpu"), cfg, cpu,
+                            keep_logits=True)
+    tol = 6 * 2.0 ** -8
+    parted = np.nonzero((card.tokens != host.tokens).any(0))[0]
+    last = int(parted[0]) if len(parted) else small["steps"] - 1
+    worst, compared = 0.0, 0
+    for i in range(last + 1):          # steps fed the same tokens
+        a = card.logits[i].cpu().numpy()
+        b = host.logits[i].numpy()
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+        top2 = np.sort(b, -1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2 * tol * np.abs(b).max()
+        if not np.array_equal(a.argmax(-1)[clear], b.argmax(-1)[clear]):
+            raise AssertionError(f"reduced step {i}: tokens differ at a "
+                                 "clear margin")
+        compared += int(clear.sum())
+    if not worst <= tol:
+        raise AssertionError(f"reduced card vs CPU: error {worst:.3e} of "
+                             f"max|logit| > {tol:.3e}")
+    log(f"  reduced {cfg.name} int8, card vs CPU: max error {worst:.2e} of "
+        f"max|logit| (limit {tol:.2e}) over {last + 1} steps fed the same "
+        f"tokens; {compared} clear-margin tokens equal")
+    return {"max_err_share": worst, "steps_compared": last + 1,
+            "tokens_compared": compared}
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -554,17 +837,30 @@ def main() -> int:
     rows = kernel_phase(dev, P_FULL * blk, (P_FULL, blk), wire)
     log("phase 2: collectives, every method")
     small_phase(dev)
-    log("phase 3: the main path at the paper's scale")
+    log("phase 3: the collective main path at the paper's scale")
     full = full_phase(dev)
+    torch.cuda.empty_cache()
     main_launches = {k: full["dptree_f32"]["launches"][k]
                      + full["hier_bf16"]["launches"][k]
                      + full["dptree_i32"]["launches"][k] for k in WRAPPERS}
-    for name in ("combine3", "compress_bf16", "decompress_bf16"):
+    log("main path: " + json.dumps(full))
+
+    mcfg = get_config(DECODE["arch"])
+    token_rows = DECODE["batch"] * mcfg.n_kv_heads
+    ring_rows = token_rows * DECODE["cache_len"]
+    log("phase 4: the int8 K/V kernels")
+    rows.update(int8_phase(dev, token_rows, ring_rows, mcfg.hdim))
+    log("phase 5: the serving main path, MiniCPM-2B at full width")
+    decode = decode_phase(dev)
+    for name in ("quantize_int8", "dequantize_int8"):
+        main_launches[name] = decode["launches"][name]
+    for name in ("combine3", "compress_bf16", "decompress_bf16",
+                 "quantize_int8", "dequantize_int8"):
         if main_launches[name] == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+            raise AssertionError(f"{name} was not launched on its main path")
     for name, row in rows.items():
         row["launches"] = main_launches[name]
-    log("main path: " + json.dumps(full))
+    log("decode path: " + json.dumps(decode))
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     print(json.dumps({"ok": True, "device": {

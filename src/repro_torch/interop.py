@@ -1,21 +1,28 @@
 """Carry the reference's host-side state into the port.
 
-This slice has no weights: the state that crosses from ``repro`` to
-``repro_torch`` is the topology constants and the cost model's fields.
-:func:`from_reference` takes them as plain dicts of numpy arrays and numbers
-(``dataclasses.asdict`` of the reference's ``TreeTopology``,
-``HierarchicalTopology`` or ``CommModel``) and builds the port's object,
-without importing ``repro``.
+Two kinds of state cross from ``repro`` to ``repro_torch``, both as plain
+Python containers of numpy arrays, so this module imports nothing of
+``repro``:
+
+* :func:`from_reference` takes the topology constants and the cost model's
+  fields (``dataclasses.asdict`` of the reference's ``TreeTopology``,
+  ``HierarchicalTopology`` or ``CommModel``) and builds the port's object;
+* :func:`params_from_reference` takes the reference's model parameters (its
+  ``init_params`` output with every leaf as a numpy array) and gives the
+  port's, in the same nesting: the stacked ``(n_periods, ...)`` layer
+  leaves and, for tied embeddings, the one ``embed`` matrix.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.cost_model import CommModel
 from repro_torch.core.topology import HierarchicalTopology, TreeTopology
+from repro_torch.core.transport import resolve_device
 
-__all__ = ["from_reference"]
+__all__ = ["from_reference", "params_from_reference"]
 
 _TREE_ARRAYS = ("parent", "child0", "child1", "depth", "phi", "tree_id")
 
@@ -59,3 +66,29 @@ def from_reference(fields: dict):
         return _tree(fields)
     raise ValueError(f"not a reference topology or CommModel: "
                      f"keys {sorted(fields)}")
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bf16 of its own: move the bits through int16
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_reference(tree, device=None):
+    """The reference's parameter tree (nested dicts, lists and tuples of
+    numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) as the port's:
+    the same nesting, every leaf a tensor of the same dtype (bf16 included)
+    and bits on ``device`` (CUDA unless named)."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        return _leaf(node, dev)
+
+    return conv(tree)

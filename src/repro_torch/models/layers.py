@@ -1,0 +1,310 @@
+"""Neural layers of the decode path (the port of ``repro.models.layers``).
+
+Plain functions on tensors with parameters in nested dicts, in the
+reference's layouts: activations ``(B, T, D)``, heads ``(B, T, H, dh)``,
+K/V rings ``(B, S, KV, dh)``, so the parity tests compare like with like.
+This slice ports what the fixed-batch decode loop and the short-sequence
+forward run: RMSNorm, the activations, RoPE (without M-RoPE), GQA attention
+with causal, window and chunk masks, the ring K/V cache in bf16 or int8, and
+the MLP. ``attention`` at T > ``FLASH_THRESHOLD`` is the flash path of the
+training slice and raises here.
+
+Compute follows the reference's dtype rules: matmuls in the activation
+dtype, attention logits and softmax in f32, RoPE in f32 and rounded back.
+The int8 cache rows go through :mod:`repro_torch.kernels.ops`, so on a CUDA
+tensor they run the hand-written kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+__all__ = ["Params", "AttnConfig", "FLASH_THRESHOLD", "dense_init",
+           "rmsnorm_init", "rmsnorm", "act_fn", "rope_freqs", "apply_rope",
+           "attention", "quantize_kv_rows", "attention_decode", "mlp"]
+
+Params = dict
+
+FLASH_THRESHOLD = 1024   # direct sdpa at or below; flash (training slice) above
+
+
+# --------------------------------------------------------------------------
+# initialization
+# --------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, scale: float | None = None,
+               dtype=torch.float32, periods: int | None = None
+               ) -> torch.Tensor:
+    """Normal weights times ``scale`` (default ``1/sqrt(shape[0])``), drawn
+    in f32 from ``gen`` on its device, then cast to ``dtype``. With
+    ``periods`` the tensor is ``(periods, *shape)``: one draw per period of
+    a stacked layer."""
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    full = tuple(shape) if periods is None else (periods, *shape)
+    w = torch.randn(full, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norms / activations
+# --------------------------------------------------------------------------
+
+def rmsnorm_init(dim: int, device=None, periods: int | None = None
+                 ) -> Params:
+    shape = (dim,) if periods is None else (periods, dim)
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * p["scale"]).to(dt)
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(x))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+
+
+def act_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return _gelu
+    if name == "relu2":          # squared ReLU (nemotron-4)
+        return _relu2
+    raise ValueError(name)
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0,
+               mrope_sections: tuple | None = None) -> torch.Tensor:
+    """x: (B, T, H, dh); positions: (B, T) (or (B, T, 3), first component).
+    Rotate-half convention, angles and products in f32, rounded back to
+    x's dtype."""
+    if mrope_sections is not None:
+        raise NotImplementedError(
+            "M-RoPE is not ported yet: ROADMAP.md queue 1, 'Next' item 3 "
+            "(other sublayer kinds and inputs)")
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, device=x.device)      # (dh/2,)
+    if positions.dim() == 3:
+        positions = positions[..., 0]
+    ang = positions[..., None].to(torch.float32) * freqs   # (B, T, dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    return torch.cat([o1, o2], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention (GQA, sliding-window, chunked, KV cache)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    sliding_window: int | None = None     # SWA width (mixtral)
+    chunk_size: int | None = None         # chunked attention (llama4-scout)
+    causal: bool = True                   # False for encoder self-attn
+    mrope_sections: tuple | None = None   # (t, h, w) bands for M-RoPE
+    use_rope: bool = True
+
+
+def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
+              periods: int | None = None) -> Params:
+    D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, (D, H * dh), dtype=dtype, periods=periods),
+        "wk": dense_init(gen, (D, KV * dh), dtype=dtype, periods=periods),
+        "wv": dense_init(gen, (D, KV * dh), dtype=dtype, periods=periods),
+        "wo": dense_init(gen, (H * dh, D), scale=1.0 / math.sqrt(H * dh),
+                         dtype=dtype, periods=periods),
+    }
+
+
+def _attn_mask(Tq: int, Tk: int, causal: bool, window: int | None,
+               chunk: int | None, q_off: int = 0,
+               device=None) -> torch.Tensor:
+    qi = torch.arange(Tq, device=device)[:, None] + q_off
+    ki = torch.arange(Tk, device=device)[None, :]
+    m = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    if causal:
+        m &= ki <= qi
+    if window is not None:
+        m &= ki > qi - window
+    if chunk is not None:
+        m &= (ki // chunk) == (qi // chunk)
+    return m
+
+
+def _qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions):
+    B, T, _ = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).view(B, T, H, dh)
+    k = (x @ p["wk"].to(x.dtype)).view(B, T, KV, dh)
+    v = (x @ p["wv"].to(x.dtype)).view(B, T, KV, dh)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    return q, k, v
+
+
+def _scores(qg: torch.Tensor, k: torch.Tensor, dh: int) -> torch.Tensor:
+    """Grouped logits ``(B, KV, rep, Tq, Tk)`` in f32: the product in the
+    activation dtype, then the 1/sqrt(dh) scale in f32 (the reference
+    divides its einsum by a NumPy scalar, which promotes to f32)."""
+    s = torch.einsum("btgrd,bsgd->bgrts", qg, k)
+    return s.to(torch.float32) / math.sqrt(dh)
+
+
+def _sdpa(q, k, v, mask, n_heads: int, n_kv: int) -> torch.Tensor:
+    """q: (B,Tq,H,dh); k/v: (B,Tk,KV,dh); mask: (Tq,Tk) or None. The direct
+    form: materializes the (Tq, Tk) logits."""
+    B, Tq, H, dh = q.shape
+    rep = n_heads // n_kv
+    qg = q.reshape(B, Tq, n_kv, rep, dh)
+    logits = _scores(qg, k, dh)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e30)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrts,bsgd->btgrd", w, v)
+    return out.reshape(B, Tq, H * dh)
+
+
+def attention(p: Params, cfg: AttnConfig, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence attention, T <= ``FLASH_THRESHOLD``. Above it the
+    reference switches to its flash path, which is the training slice's."""
+    T = x.shape[1]
+    if T > FLASH_THRESHOLD:
+        raise NotImplementedError("flash attention: training slice")
+    q, k, v = _qkv(p, cfg, x, positions)
+    mask = _attn_mask(T, T, cfg.causal, cfg.sliding_window, cfg.chunk_size,
+                      device=x.device)
+    out = _sdpa(q, k, v, mask, cfg.n_heads, cfg.n_kv_heads)
+    return out @ p["wo"].to(x.dtype)
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """Symmetric int8 per-(token, head) row quantization of K/V entries:
+    ``(q int8, scale (..., 1) f32)``. The int8 quantize kernel on a CUDA
+    tensor."""
+    return ops.kv_quantize(x)
+
+
+def _cache_write(cache_arr: torch.Tensor, scale_arr, val: torch.Tensor,
+                 slot: int):
+    """Write ``val`` (B, T, KV, dh) into the ring at ``slot``, IN PLACE (the
+    reference donates its caches, so it may too); int8 rings also take the
+    new rows' scales. Returns the (same) arrays."""
+    end = slot + val.shape[1]
+    if cache_arr.dtype == torch.int8:
+        q, s = quantize_kv_rows(val)
+        cache_arr[:, slot:end] = q
+        scale_arr[:, slot:end] = s
+    else:
+        cache_arr[:, slot:end] = val.to(cache_arr.dtype)
+    return cache_arr, scale_arr
+
+
+def _cache_read(cache_arr: torch.Tensor, scale_arr, dtype) -> torch.Tensor:
+    """The ring as ``dtype``: the int8 dequantize kernel on a CUDA int8
+    ring, a cast otherwise."""
+    if cache_arr.dtype == torch.int8:
+        return ops.kv_dequantize(cache_arr, scale_arr, dtype)
+    return cache_arr.to(dtype)
+
+
+def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor,
+                     cache: Params, cache_pos: int):
+    """One-token decode against a ring KV cache.
+
+    x: (B, 1, D); cache = {"k","v"[,"ks","vs"]} with k/v (B, S, KV, dh)
+    (bf16, or int8 + f32 scales); cache_pos: tokens already cached, a host
+    integer (the reference's scalar position). Writes the new token's K/V
+    into the ring in place and returns (out, cache dict).
+    """
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    positions = torch.full((B, 1), cache_pos, dtype=torch.int32,
+                           device=x.device)
+    q, k, v = _qkv(p, cfg, x, positions)
+    slot = cache_pos % S
+    ck, ks = _cache_write(cache["k"], cache.get("ks"), k, slot)
+    cv, vs = _cache_write(cache["v"], cache.get("vs"), v, slot)
+    new_cache = {"k": ck, "v": cv}
+    if ks is not None:
+        new_cache["ks"], new_cache["vs"] = ks, vs
+    cache_k = _cache_read(ck, ks, q.dtype)
+    cache_v = _cache_read(cv, vs, q.dtype)
+    # ring cache: slot s currently holds absolute position
+    # pos - ((pos - s) mod S) (negative -> not yet written)
+    ki = cache_pos - torch.remainder(
+        cache_pos - torch.arange(S, device=x.device), S)
+    valid = ki >= 0
+    if cfg.sliding_window is not None:
+        valid &= ki > cache_pos - cfg.sliding_window
+    if cfg.chunk_size is not None:
+        valid &= (ki // cfg.chunk_size) == (cache_pos // cfg.chunk_size)
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rep = H // KV
+    qg = q.reshape(B, 1, KV, rep, dh)
+    logits = _scores(qg, cache_k, dh).masked_fill(~valid, -1e30)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrts,bsgd->btgrd", w, cache_v)
+    out = out.reshape(B, 1, H * dh) @ p["wo"].to(x.dtype)
+    return out, new_cache
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, gated: bool,
+             dtype=torch.float32, periods: int | None = None) -> Params:
+    p = {"w_in": dense_init(gen, (d_model, d_ff), dtype=dtype,
+                            periods=periods),
+         "w_out": dense_init(gen, (d_ff, d_model), dtype=dtype,
+                             periods=periods)}
+    if gated:
+        p["w_gate"] = dense_init(gen, (d_model, d_ff), dtype=dtype,
+                                 periods=periods)
+    return p
+
+
+def mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    h = x @ p["w_in"].to(x.dtype)
+    if "w_gate" in p:
+        h = act_fn(activation)(x @ p["w_gate"].to(x.dtype)) * h
+    else:
+        h = act_fn(activation)(h)
+    return h @ p["w_out"].to(x.dtype)

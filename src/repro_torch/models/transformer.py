@@ -1,0 +1,306 @@
+"""Config-driven transformer stack (the port of ``repro.models.transformer``).
+
+A model is a *layer pattern*: a period of layers, each a tuple of sublayers.
+The full depth is ``n_periods`` repetitions of the pattern, with parameters
+stacked along a leading period axis, as in the reference; where the
+reference scans over that axis, the port loops over it. Parameters and
+caches are nested dicts in the reference's layout, so
+:func:`repro_torch.interop.params_from_reference` carries the reference's
+``init_params`` output across unchanged.
+
+This slice builds the dense decoders (sublayer kinds ``attn`` and ``mlp``,
+token inputs). A config with another kind, M-RoPE, embeddings input or an
+encoder is a valid config, but building or running its model raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core.transport import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.layers import Params
+
+__all__ = ["MoESettings", "SubSpec", "ModelConfig", "PORTED_KINDS",
+           "check_supported", "init_params", "init_cache", "embed_inputs",
+           "forward", "unembed", "decode_step", "advance_pos"]
+
+PORTED_KINDS = ("attn", "mlp")
+_KINDS_ITEM = ("ROADMAP.md queue 1, 'Next' item 3 (other sublayer kinds and "
+               "inputs)")
+
+# --------------------------------------------------------------------------
+# configuration
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESettings:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    impl: str = "dispatch"          # 'dispatch' (sort-based) | 'masked'
+
+
+@dataclasses.dataclass(frozen=True)
+class SubSpec:
+    kind: str                        # attn|xattn|mlp|moe|mamba|rwkv
+    use_rope: bool = True
+    sliding_window: int | None = None
+    chunk_size: int | None = None
+    causal: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    pattern: tuple = (("attn", "mlp"),)   # tuple of layers; each layer is a
+                                          # tuple of SubSpec or kind-strings
+    head_dim: int | None = None
+    activation: str = "silu"
+    gated_mlp: bool = True
+    rope_theta: float = 10000.0
+    mrope_sections: tuple | None = None
+    moe: MoESettings | None = None
+    tie_embeddings: bool = True
+    input_mode: str = "tokens"            # tokens | embeds (stub frontends)
+    # encoder-decoder (seamless): encoder layers use its own pattern
+    n_enc_layers: int = 0
+    enc_pattern: tuple = ()
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    remat: bool = True
+    remat_policy: str = "full"      # full | dots (save matmul outputs)
+    kv_quant: bool = False          # int8 KV cache (+ per-row scales)
+    rwkv_head_dim: int = 64
+    mamba_d_state: int = 16
+
+    def __post_init__(self):
+        object.__setattr__(self, "pattern", _norm_pattern(self.pattern))
+        if self.enc_pattern:
+            object.__setattr__(self, "enc_pattern",
+                               _norm_pattern(self.enc_pattern))
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"{self.name}: n_layers={self.n_layers} is not "
+                             f"a multiple of the pattern length "
+                             f"{len(self.pattern)}")
+
+    @property
+    def hdim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    def attn_cfg(self, s: SubSpec) -> L.AttnConfig:
+        return L.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.hdim,
+            rope_theta=self.rope_theta, sliding_window=s.sliding_window,
+            chunk_size=s.chunk_size, causal=s.causal,
+            mrope_sections=self.mrope_sections,
+            use_rope=s.use_rope)
+
+
+def _norm_pattern(pattern):
+    return tuple(tuple(SubSpec(kind=s) if isinstance(s, str) else s
+                       for s in layer) for layer in pattern)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless this slice can build ``cfg``."""
+    kinds = {s.kind for layer in cfg.pattern + cfg.enc_pattern
+             for s in layer}
+    extra = sorted(kinds - set(PORTED_KINDS))
+    if extra:
+        raise NotImplementedError(
+            f"{cfg.name}: sublayer kinds {extra} are not ported yet: "
+            f"{_KINDS_ITEM}")
+    if cfg.n_enc_layers:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  f"not ported yet: {_KINDS_ITEM}")
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported yet: "
+                                  f"{_KINDS_ITEM}")
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(f"{cfg.name}: {cfg.input_mode!r} input is "
+                                  f"not ported yet: {_KINDS_ITEM}")
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _sub_init(gen: torch.Generator, cfg: ModelConfig, s: SubSpec) -> Params:
+    n, dt = cfg.n_periods, cfg.param_dtype
+    norm = L.rmsnorm_init(cfg.d_model, device=gen.device, periods=n)
+    if s.kind == "attn":
+        return {"norm": norm,
+                **L.attn_init(gen, cfg.attn_cfg(s), dtype=dt, periods=n)}
+    return {"norm": norm, **L.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                       cfg.gated_mlp, dt, periods=n)}
+
+
+def init_params(cfg: ModelConfig, seed: int, device=None) -> Params:
+    """Random parameters of the reference's shapes, dtypes and init scales
+    (normal times ``1/sqrt(fan_in)``, 0.02 for the embeddings), drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA unless
+    named). The values are not the reference's: to hold the port against
+    it, carry the reference's own with ``interop.params_from_reference``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p: Params = {
+        "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), scale=0.02,
+                              dtype=cfg.param_dtype),
+        "final_norm": L.rmsnorm_init(cfg.d_model, device=dev),
+        "layers": [tuple(_sub_init(gen, cfg, s) for s in layer)
+                   for layer in cfg.pattern],
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                    scale=0.02, dtype=cfg.param_dtype)
+    return p
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               kv_dtype=torch.bfloat16, device=None) -> tuple:
+    """Stacked ``(n_periods, ...)`` ring caches, one dict per attention
+    sublayer of the pattern: ``k``/``v`` ``(n_periods, batch, S, KV, dh)``
+    in ``kv_dtype``, or int8 with f32 scales ``ks``/``vs``
+    ``(n_periods, batch, S, KV, 1)`` when ``cfg.kv_quant``; ``S`` is
+    ``max_len``, or the window or chunk where one bounds it. ``pos``
+    ``(n_periods,)`` int32 counts the tokens cached; it stays on the host,
+    so the write slot and the validity mask need no device sync."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    KV, dh, n = cfg.n_kv_heads, cfg.hdim, cfg.n_periods
+    caches = []
+    for layer in cfg.pattern:
+        for s in layer:
+            if s.kind != "attn":
+                continue
+            S = max_len
+            if s.sliding_window is not None:
+                S = min(S, s.sliding_window)
+            if s.chunk_size is not None:
+                S = min(S, s.chunk_size)
+            shape = (n, batch, S, KV, dh)
+            c = {"pos": torch.zeros((n,), dtype=torch.int32)}
+            if cfg.kv_quant:
+                for name in ("k", "v"):
+                    c[name] = torch.zeros(shape, dtype=torch.int8, device=dev)
+                    c[name + "s"] = torch.zeros(shape[:-1] + (1,),
+                                                dtype=torch.float32,
+                                                device=dev)
+            else:
+                for name in ("k", "v"):
+                    c[name] = torch.zeros(shape, dtype=kv_dtype, device=dev)
+            caches.append(c)
+    return tuple(caches)
+
+
+# --------------------------------------------------------------------------
+# forward pass
+# --------------------------------------------------------------------------
+
+def _period(tree, i: int):
+    """Period ``i`` of a stacked parameter or cache dict: views, so writes
+    into a cache's period land in the stacked tensor."""
+    return {k: (_period(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
+               positions, cache):
+    """One sublayer (``attn`` or ``mlp``: the entry points have checked the
+    config). A decode ``cache`` (one period's views) is written in place."""
+    h = L.rmsnorm(sp["norm"], x)
+    if s.kind == "attn":
+        acfg = cfg.attn_cfg(s)
+        if cache is not None:
+            o, _ = L.attention_decode(sp, acfg, h, cache, int(cache["pos"]))
+        else:
+            o = L.attention(sp, acfg, h, positions)
+    else:
+        o = L.mlp(sp, h, cfg.activation)
+    return x + o
+
+
+def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
+               positions, caches=None):
+    """Loop over periods (the reference scans); returns (x, caches). Decode
+    writes each period's new K/V into the stacked caches in place."""
+    n = layer_params[0][0]["norm"]["scale"].shape[0]
+    for i in range(n):
+        ci = 0
+        for pos, layer in enumerate(pattern):
+            for si, s in enumerate(layer):
+                c = None
+                if caches is not None and s.kind == "attn":
+                    c = _period(caches[ci], i)
+                    ci += 1
+                x = _apply_sub(_period(layer_params[pos][si], i), s, cfg, x,
+                               positions, c)
+    return x, caches
+
+
+def embed_inputs(params: Params, cfg: ModelConfig, inputs: dict) -> tuple:
+    tokens = inputs["tokens"]
+    # gather, then cast: the same values as the reference's cast-then-gather
+    x = params["embed"][tokens].to(cfg.compute_dtype)
+    B, T = x.shape[:2]
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=x.device)[None].expand(B, T)
+    return x, positions
+
+
+def forward(params: Params, cfg: ModelConfig, inputs: dict) -> tuple:
+    """Full-sequence forward -> (final hidden states, aux loss). The aux
+    loss is the MoE balance term, zero for the kinds this slice builds."""
+    check_supported(cfg)
+    x, positions = embed_inputs(params, cfg, inputs)
+    x, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.rmsnorm(params["final_norm"], x), aux
+
+
+def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ w.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# decode (serving)
+# --------------------------------------------------------------------------
+
+def decode_step(params: Params, cfg: ModelConfig, inputs: dict,
+                caches: tuple) -> tuple:
+    """One-token decode. inputs: {'tokens': (B, 1)}. Returns (logits (B, V)
+    f32, caches with positions advanced). The K/V rings are updated in
+    place: the returned caches share their tensors with ``caches``."""
+    check_supported(cfg)
+    x, _ = embed_inputs(params, cfg, inputs)
+    x, caches = _run_stack(params["layers"], cfg.pattern, cfg, x, None,
+                           caches)
+    x = L.rmsnorm(params["final_norm"], x)
+    logits = unembed(params, cfg, x)[:, -1]
+    return logits.to(torch.float32), advance_pos(caches)
+
+
+def advance_pos(caches: tuple) -> tuple:
+    """Increment every attention cache's position by one."""
+    return tuple({**c, "pos": c["pos"] + 1} if "pos" in c else c
+                 for c in caches)

@@ -7,6 +7,9 @@ no JAX, so it runs on the machine with the card:
 Without a card every test skips (a CUDA kernel has no CPU mode).
 """
 
+import argparse
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -107,8 +110,90 @@ def test_cast_kernels_match_plain(n, cuda):
                         ref.decompress_bf16_ref(src))
 
 
+def _int8_rows(rng, rows, width):
+    """f32 rows at scales 1e-3..1e3, then zeros, exact .5 ties of x/scale
+    (absmax 127, so the scale is 1.0), +-absmax (codes +-127) and a row
+    under the 1e-8 floor."""
+    x = (rng.standard_normal((rows, width))
+         * 10.0 ** rng.uniform(-3, 3, (rows, 1))).astype(np.float32)
+    ties = np.resize(np.array([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5,
+                               -126.5, 3.5, -3.5, 64.5], np.float32), width)
+    ext = np.resize(np.array([-3.0, 3.0, 1.0, -1.0], np.float32), width)
+    tiny = np.resize(np.array([4e-9, -2e-9, 1e-12, 0.0], np.float32), width)
+    return torch.from_numpy(np.concatenate(
+        [x, np.zeros((1, width), np.float32), ties[None], ext[None],
+         tiny[None]]))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [12, 64, 128, 256])
+def test_int8_kernels_match_plain(width, dt, cuda):
+    x = _int8_rows(np.random.default_rng(width), 5000, width)
+    x = x.to(DTYPES[dt]).to(cuda)
+    before = (quantize.quantize_int8.launches,
+              quantize.dequantize_int8.launches)
+    q, s = quantize.quantize_int8(x)
+    qr, sr = ref.quantize_int8_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qr)
+    _assert_bitwise(s, sr)
+    for out in (torch.float32, torch.bfloat16):
+        _assert_bitwise(quantize.dequantize_int8(q, s, out),
+                        ref.dequantize_int8_ref(q, s, out))
+    assert (quantize.quantize_int8.launches,
+            quantize.dequantize_int8.launches) == (before[0] + 1,
+                                                   before[1] + 2)
+    # codes one byte into a buffer: not 16-byte aligned, the scalar path
+    buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda)
+    qu = buf[1:].view(q.shape)
+    qu.copy_(q)
+    _assert_bitwise(quantize.dequantize_int8(qu, s, torch.bfloat16),
+                    ref.dequantize_int8_ref(q, s, torch.bfloat16))
+
+
+def test_int8_nan_rows_match_plain(cuda):
+    """A NaN in a row makes its scale NaN in both versions (a NaN-propagating
+    absmax); the other rows' codes and scales stay bitwise equal."""
+    x = _int8_rows(np.random.default_rng(3), 64, 64).to(cuda)
+    x[5, 7] = float("nan")
+    q, s = quantize.quantize_int8(x)
+    qr, sr = ref.quantize_int8_ref(x)
+    assert torch.isnan(s[5]).all() and torch.isnan(sr[5]).all()
+    ok = torch.ones(x.shape[0], dtype=torch.bool, device=cuda)
+    ok[5] = False
+    assert torch.equal(q[ok], qr[ok])
+    _assert_bitwise(s[ok], sr[ok])
+
+
 def test_launch_counters_count_only_launches(cuda):
     before = block_combine.combine2.launches
     empty = torch.empty(0, device=cuda)
     assert block_combine.combine2(empty, empty).numel() == 0
     assert block_combine.combine2.launches == before
+    before = quantize.quantize_int8.launches
+    q, s = quantize.quantize_int8(torch.empty((0, 64), device=cuda))
+    assert q.shape == (0, 64) and quantize.quantize_int8.launches == before
+
+
+def test_int8_decode_runs_the_kernels_and_matches_plain(cuda, monkeypatch):
+    """Reduced MiniCPM-2B with the int8 cache through ``serve_loop`` on the
+    card, the ring wrapping (6 steps, 4 slots): every step quantizes and
+    dequantizes K and V once per layer, and tokens and logits are bitwise
+    those of the same run with the plain versions."""
+    from repro_torch.configs.base import decode_config, get_config
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(
+        decode_config(get_config("minicpm_2b", reduced=True)), kv_quant=True)
+    args = argparse.Namespace(arch="minicpm_2b", reduced=True, batch=3,
+                              steps=6, cache_len=4, seed=0, device="cuda")
+    before = (quantize.quantize_int8.launches,
+              quantize.dequantize_int8.launches)
+    run = serve.serve_loop(args, cfg, keep_logits=True)
+    want = 2 * cfg.n_layers * args.steps
+    assert (quantize.quantize_int8.launches - before[0],
+            quantize.dequantize_int8.launches - before[1]) == (want, want)
+    monkeypatch.setattr(quantize, "quantize_int8", ref.quantize_int8_ref)
+    monkeypatch.setattr(quantize, "dequantize_int8", ref.dequantize_int8_ref)
+    plain = serve.serve_loop(args, cfg, keep_logits=True)
+    assert np.array_equal(run.tokens, plain.tokens)
+    _assert_bitwise(run.logits, plain.logits)
