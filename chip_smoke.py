@@ -26,9 +26,25 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    8192, 32 greedy steps, its tokens and logits bitwise equal to the same
    run with the plain int8 versions, and a reduced MiniCPM-2B on the card
    within bf16 tolerance of the port on the CPU (which the CPU tests hold
-   against the JAX package).
+   against the JAX package);
+6. the flash-attention kernel against its plain version (the port of the
+   reference's ``_flash_sdpa``), each output element within ``FLASH_TOL``
+   of its size plus its row's largest and the row log-sum-exp within
+   ``FLASH_LSE_TOL`` (both in ``kernels/flash_attention.py``): 1 and 4
+   query heads per K/V head, head_dim 64 and 128, causal, window, chunk
+   and full masks, T = 1025, 1536 and 4096, f32 and bf16 (the window and
+   chunks leave the first key tile of many rows fully masked), then at the
+   training path's shape (4, 4096, 36, 64) bf16 causal, timed beside SDPA;
+7. the training main path at full width: MiniCPM-2B through the port's
+   ``train_loop`` at seq 4096, batch 4, for ``TRAIN["steps"]`` steps, its
+   batches on the card equal to the CPU's, every step's loss and grad norm
+   finite and within tolerance of the same steps with the plain flash
+   version, the flash launches counted (forward and recompute, every layer,
+   every step), one step traced; and a reduced MiniCPM-2B at T = 1088
+   (head_dim 64, the kernel's width) trained on the card within bf16
+   tolerance of the port on the CPU.
 
-In phases 3 and 5 the kernels' launch counters are zeroed just before the
+In phases 3, 5 and 7 the kernels' launch counters are zeroed just before the
 main path and read just after, and must show that the kernels carried it.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -40,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -58,15 +75,20 @@ from repro_torch.core import (CollectiveConfig, LocalTransport,  # noqa: E402
                               all_reduce, build_dual_tree, build_hierarchy,
                               cost_model, dptree, simulate_allreduce,
                               structured_all_reduce)
-from repro_torch.configs.base import decode_config, get_config  # noqa: E402
+from repro_torch.configs.base import (decode_config, get_arch,  # noqa: E402
+                                      get_config)
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, block_combine, quantize, ref  # noqa: E402
-from repro_torch.launch import serve, step_fns  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.launch import serve, step_fns, train  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 rate outside the
-# tensor cores (the combine and cast kernels use no tensor core).
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, the f32 rate outside the
+# tensor cores (the combine and cast kernels use no tensor core) and the
+# dense bf16 tensor-core rate (the flash kernel's products).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 P_FULL, M_FULL = 288, 8_388_608      # the paper's cluster (cost_model.py)
 P_SMALL, M_SMALL = 8, 1_000_003
@@ -85,16 +107,30 @@ KERNEL_FILES = {
                       "src/repro/kernels/quantize.py:32"),
     "dequantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu",
                         "src/repro/kernels/quantize.py:41"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:30"),
 }
 WRAPPERS = {"combine2": block_combine.combine2,
             "combine3": block_combine.combine3,
             "compress_bf16": quantize.compress_bf16,
             "decompress_bf16": quantize.decompress_bf16,
             "quantize_int8": quantize.quantize_int8,
-            "dequantize_int8": quantize.dequantize_int8}
+            "dequantize_int8": quantize.dequantize_int8,
+            "flash_attention": fa.flash_attention}
 # phase 5: MiniCPM-2B decode, cut from the reference's decode_32k cell
 # (batch 128, 32,768 cached tokens) to what one 80 GB card holds
 DECODE = dict(arch="minicpm_2b", batch=16, cache_len=8192, steps=32, seed=0)
+# phase 7: MiniCPM-2B training, cut from the reference's train_4k cell
+# (seq 4096, global batch 256) to the batch one 80 GB card holds
+TRAIN = dict(arch="minicpm_2b", seq_len=4096, global_batch=4, accum=1,
+             steps=3, lr=1e-4, seed=0, log_every=1)
+FLASH_LENGTHS = (1025, 1536, 4096)
+# training, kernel vs plain flash (same params and batches): each step's
+# loss and grad norm within TRAIN_TOL relative, about ten times the gaps a
+# sound kernel reads (PERF.md); reduced training, card vs CPU: losses
+# within 2**-8 (the CPU tests' bound against the JAX package)
+TRAIN_TOL = {"loss": 5e-4, "grad_norm": 2.5e-3}
+REDUCED_TOL = 2.0 ** -8
 U = 2.0 ** -24                       # f32 unit roundoff
 # bf16 bit patterns for the head of every max/min operand: +0, -0, quiet and
 # signalling NaNs of both signs, +inf, -inf, 1. Each NaN's payload names
@@ -231,6 +267,18 @@ def plain_int8():
         yield
     finally:
         quantize.quantize_int8, quantize.dequantize_int8 = saved
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Run attention with the plain flash forward in place of the kernel
+    (the autograd Function looks the wrapper up at each call)."""
+    saved = fa.flash_attention
+    fa.flash_attention = ref.flash_attention_ref
+    try:
+        yield
+    finally:
+        fa.flash_attention = saved
 
 
 def card_line() -> str:
@@ -686,6 +734,240 @@ def int8_phase(dev, token_rows: int, ring_rows: int, width: int) -> dict:
     return rows
 
 
+# ------------------------------------------------------ flash attention
+
+def flash_work(B, T, H, KV, dh):
+    """(FLOP, bytes) one causal self-attention needs: the two products over
+    the T (T + 1) / 2 (query, key) pairs the mask keeps, and q, k, v, out
+    (bf16) read or written once, lse (f32) written once."""
+    flops = 4 * B * H * dh * (T * (T + 1) // 2)
+    nbytes = 2 * (2 * B * T * H * dh + 2 * B * T * KV * dh) + 4 * B * H * T
+    return flops, nbytes
+
+
+def flash_phase(dev, path_shape) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = {(dt, what): 0.0 for dt in fa.FLASH_TOL
+             for what in ("out", "lse")}
+
+    def check(got, want, dt, what):
+        share, lse_err = fa.flash_errors(*got, *want)
+        if not bool(torch.isfinite(got[0].float()).all()):
+            raise AssertionError(f"{what}: not finite")
+        if not (share <= fa.FLASH_TOL[dt]
+                and lse_err <= fa.FLASH_LSE_TOL[dt]):
+            raise AssertionError(
+                f"{what}: out error {share:.3e} of |want| + row max (limit "
+                f"{fa.FLASH_TOL[dt]:.3e}), lse error {lse_err:.3e} (limit "
+                f"{fa.FLASH_LSE_TOL[dt]:.3e})")
+        worst[dt, "out"] = max(worst[dt, "out"], share)
+        worst[dt, "lse"] = max(worst[dt, "lse"], lse_err)
+        return share, lse_err
+
+    checks = 0
+    for T in FLASH_LENGTHS:
+        for dh in fa.HEAD_DIMS:
+            for rep in (1, 4):
+                for mask, (causal, window, chunk) in fa.FLASH_MASKS.items():
+                    for dt in (torch.float32, torch.bfloat16):
+                        q, k, v = (torch.randn((1, T, n, dh), generator=gen,
+                                               device=dev).to(dt)
+                                   for n in (rep * 2, 2, 2))
+                        kw = dict(causal=causal, window=window, chunk=chunk)
+                        check(fa.flash_attention(q, k, v, **kw),
+                              ref.flash_attention_ref(q, k, v, **kw), dt,
+                              f"flash T={T} dh={dh} rep={rep} {mask} {dt}")
+                        checks += 1
+    torch.cuda.synchronize()
+    log(f"  flash: {checks} cases within tolerance of the plain version; "
+        "worst out error (share of |want| + row max) / lse error: "
+        + ", ".join(
+            f"{str(dt)[6:]} {worst[dt, 'out']:.2e} / {worst[dt, 'lse']:.2e} "
+            f"(limits {fa.FLASH_TOL[dt]:.1e} / {fa.FLASH_LSE_TOL[dt]:.1e})"
+            for dt in fa.FLASH_TOL))
+    B, T, H, dh = path_shape
+    q, k, v = (torch.randn(path_shape, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    out, lse = fa.flash_attention(q, k, v)
+    want, wlse = ref.flash_attention_ref(q, k, v)
+    err = max_abs_err(out, want)
+    share, lse_err = check((out, lse), (want, wlse), torch.bfloat16,
+                           f"flash at {list(path_shape)}")
+    del out, lse, want, wlse
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t_k = time_ms(lambda: fa.flash_attention(q, k, v))
+    t_p = time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=5)
+    t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    flops, nbytes = flash_work(B, T, H, H, dh)
+    t_ops = flops / BF16_TC_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out, lse = fa.flash_attention(q, k, v)
+    dout = torch.randn(path_shape, generator=gen, device=dev).to(q.dtype)
+    t_b = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse,
+                                                      dout), reps=3)
+    src, replaces = KERNEL_FILES["flash_attention"]
+    row = {"name": "flash_attention", "route": "cuda", "source": src,
+           "replaces": replaces, "launches": None, "max_abs_err": err,
+           "ms": t_k, "plain_ms": t_p, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": t_l, "shape": list(path_shape), "flops": flops,
+           "bytes": nbytes, "tflops_per_s": flops / t_k / 1e9,
+           "err_share": share, "lse_err": lse_err, "plain_backward_ms": t_b}
+    log(f"  flash_attention {list(path_shape)} bf16 causal: kernel {t_k:.4f}"
+        f" ms ({row['tflops_per_s']:.1f} TFLOP/s), plain {t_p:.3f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4e} FLOP, "
+        f"{nbytes} bytes), SDPA {t_l:.4f} ms; out error {share:.2e} of "
+        f"|want| + row max, lse error {lse_err:.2e}; plain backward "
+        f"{t_b:.3f} ms")
+    del q, k, v, qt, kt, vt, out, lse, dout
+    return row
+
+
+# ---------------------------------------------------- the training path
+
+def flash_calls(cfg) -> int:
+    """Flash launches per microbatch: one per attention layer in the
+    forward, and one more in the backward's recompute under remat."""
+    return cfg.n_layers * (2 if cfg.remat else 1)
+
+
+def train_args(**kw) -> argparse.Namespace:
+    return argparse.Namespace(**{**TRAIN, "reduced": False, "device": "cuda",
+                                 **kw})
+
+
+def close_rel(got, want, tol: float, what: str) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not (np.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"{what}: {got.tolist()} vs {want.tolist()}, "
+                             f"relative error {err:.3e} > {tol:.3e}")
+    return err
+
+
+def train_phase(dev) -> dict:
+    args = train_args(device=dev)
+    cfg = get_config(args.arch)
+    B, T, L, steps = args.global_batch, args.seq_len, cfg.n_layers, args.steps
+    log(f"  {cfg.name}: {L} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.hdim}, vocab "
+        f"{cfg.vocab_size}, remat {cfg.remat}; batch {B} x seq {T}, accum "
+        f"{args.accum}, {steps} steps, lr {args.lr}")
+    # the batches on the card are the CPU's, bit for bit
+    dcfg = DataConfig(cfg.vocab_size, T, B, args.seed)
+    card_ds, host_ds = SyntheticLM(dcfg, dev), SyntheticLM(dcfg, "cpu")
+    for i in range(steps):
+        a, b = card_ds.batch_at(i), host_ds.batch_at(i)
+        for name in ("tokens", "labels"):
+            if not torch.equal(a[name].cpu(), b[name]):
+                raise AssertionError(f"step {i} {name}: card batch differs "
+                                     "from the CPU's")
+    log(f"  data: {steps} batches on the card bitwise equal to the CPU's")
+    del card_ds, host_ds
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    run = train.train_loop(args, cfg=cfg)
+    torch.cuda.synchronize()
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = flash_calls(cfg) * args.accum * steps
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"training launched the flash kernel "
+                             f"{launches['flash_attention']} times, want "
+                             f"{want} (forward and recompute, {L} layers, "
+                             f"{args.accum} microbatches, {steps} steps)")
+    for k in WRAPPERS:
+        if k != "flash_attention" and launches[k]:
+            raise AssertionError(f"training launched {k}: {launches}")
+    met = np.array(run.metrics)
+    n_all = sum(t.numel() for t in _leaves(run.params))
+    secs = run.step_seconds
+    steady = float(np.median(secs[1:]))
+    # matmul FLOP of a step: 6 per parameter per token (forward, backward)
+    # plus 2 more for the full remat's recompute, the attention products
+    # (forward, recompute and 2.5x for the backward) beside them
+    attn_flops, _ = flash_work(B, T, cfg.n_heads, cfg.n_kv_heads, cfg.hdim)
+    model_flops = 8 * n_all * B * T + L * attn_flops * (2 + 2.5)
+    res = {"params": n_all, "launches": launches, "max_memory_bytes": peak,
+           "losses": met[:, 0].tolist(), "grad_norms": met[:, 3].tolist(),
+           "step_seconds": secs, "median_step_s": steady,
+           "tokens_per_step": B * T,
+           "tokens_per_s": B * T * steps / sum(secs),
+           "steady_tokens_per_s": B * T / steady,
+           "model_flops_per_step": model_flops,
+           "model_flop_share_of_bf16_peak":
+               model_flops / steady / BF16_TC_OPS_PER_S}
+    if not np.isfinite(met).all():
+        raise AssertionError(f"training metrics not finite: {met.tolist()}")
+    log(f"  train: losses {res['losses']}, grad norms {res['grad_norms']}, "
+        f"step seconds {secs}, median {steady:.3f} s, "
+        f"{res['steady_tokens_per_s']:.1f} tok/s steady, peak memory "
+        f"{peak / 1e9:.2f} GB, flash launches {launches['flash_attention']}"
+        f" (want {want}); {n_all} params")
+    # one step traced, on the trained params with a fresh optimizer state
+    optimizer = train.build_optimizer(get_arch(args.arch), args.lr,
+                                      args.steps)
+    step = step_fns.make_train_step(cfg, optimizer=optimizer,
+                                    accum=args.accum)
+    opt_state = optimizer.init(run.params)
+    batch = SyntheticLM(dcfg, dev).batch_at(0)
+    res["trace"] = trace = device_breakdown(
+        lambda: step(run.params, opt_state, batch), top=12)
+    res["idle_share_untraced"] = max(0.0, 1 - trace["device_busy_ms"]
+                                     / (steady * 1e3))
+    log(f"  train step traced: {json.dumps(trace)}")
+    del run, step, opt_state, batch
+    torch.cuda.empty_cache()
+    # the same steps from the same params with the plain flash forward
+    with plain_flash():
+        plain = train.train_loop(args, cfg=cfg)
+    pm = np.array(plain.metrics)
+    del plain
+    torch.cuda.empty_cache()
+    res["plain"] = {"losses": pm[:, 0].tolist(),
+                    "grad_norms": pm[:, 3].tolist()}
+    res["loss_err"] = close_rel(met[:, 0], pm[:, 0], TRAIN_TOL["loss"],
+                                "losses, kernel vs plain flash")
+    res["grad_norm_err"] = close_rel(met[:, 3], pm[:, 3],
+                                     TRAIN_TOL["grad_norm"],
+                                     "grad norms, kernel vs plain flash")
+    log(f"  train, kernel vs plain flash: losses {res['plain']['losses']}, "
+        f"grad norms {res['plain']['grad_norms']}; relative error "
+        f"{res['loss_err']:.2e} / {res['grad_norm_err']:.2e} (limits "
+        f"{TRAIN_TOL['loss']:.2e} / {TRAIN_TOL['grad_norm']:.2e})")
+    res["reduced_vs_cpu"] = train_reduced_check(dev)
+    return res
+
+
+def train_reduced_check(dev) -> dict:
+    """Reduced MiniCPM-2B at head_dim 64 (the kernel's width), T = 1088,
+    trained 5 steps on the card (flash kernel) and on the CPU (the plain
+    version, which the CPU tests hold against the JAX package) from the
+    same params: losses within 2**-8 relative."""
+    cfg = dataclasses.replace(get_config(TRAIN["arch"], reduced=True),
+                              head_dim=64)
+    kw = dict(reduced=True, seq_len=1088, global_batch=2, steps=5, lr=1e-3)
+    cpu = tf.init_params(cfg, 0, "cpu")
+    zero_counters()
+    card = train.train_loop(train_args(**kw, device=dev), _to(cpu, dev), cfg)
+    got = counters()["flash_attention"]
+    if got != flash_calls(cfg) * kw["steps"]:
+        raise AssertionError(f"the reduced run launched the flash kernel "
+                             f"{got} times, want "
+                             f"{flash_calls(cfg) * kw['steps']}")
+    host = train.train_loop(train_args(**kw, device="cpu"), cpu, cfg)
+    a = np.array([loss for _, loss in card.history])
+    b = np.array([loss for _, loss in host.history])
+    err = close_rel(a, b, REDUCED_TOL, "reduced training, card vs CPU")
+    log(f"  reduced {cfg.name} (head_dim 64) at T=1088, card vs CPU: losses "
+        f"{a.tolist()} vs {b.tolist()}, relative error {err:.2e} (limit "
+        f"{REDUCED_TOL:.2e})")
+    return {"card": a.tolist(), "cpu": b.tolist(), "max_rel_err": err}
+
+
 # ------------------------------------------------------- the decode path
 
 def serve_args(**kw) -> argparse.Namespace:
@@ -772,7 +1054,6 @@ def reduced_check(dev) -> dict:
     (the bf16 tolerance the CPU tests hold the port to against the JAX
     package), and the same greedy token wherever the CPU's top-2 margin
     exceeds twice that, over the steps whose inputs were still equal."""
-    import dataclasses
     cfg = dataclasses.replace(
         decode_config(get_config(DECODE["arch"], reduced=True)),
         kv_quant=True)
@@ -814,7 +1095,7 @@ def _to(tree, dev):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to(v, dev) for v in tree)
-    return tree.to(dev)
+    return tree.to(dev, copy=True)
 
 
 def main() -> int:
@@ -854,13 +1135,23 @@ def main() -> int:
     decode = decode_phase(dev)
     for name in ("quantize_int8", "dequantize_int8"):
         main_launches[name] = decode["launches"][name]
+    log("decode path: " + json.dumps(decode))
+    tcfg = get_config(TRAIN["arch"])
+    log("phase 6: the flash-attention kernel")
+    rows["flash_attention"] = flash_phase(
+        dev, (TRAIN["global_batch"] // TRAIN["accum"], TRAIN["seq_len"],
+              tcfg.n_heads, tcfg.hdim))
+    log("phase 7: the training main path, MiniCPM-2B at full width")
+    training = train_phase(dev)
+    main_launches["flash_attention"] = \
+        training["launches"]["flash_attention"]
+    log("training path: " + json.dumps(training))
     for name in ("combine3", "compress_bf16", "decompress_bf16",
-                 "quantize_int8", "dequantize_int8"):
+                 "quantize_int8", "dequantize_int8", "flash_attention"):
         if main_launches[name] == 0:
             raise AssertionError(f"{name} was not launched on its main path")
     for name, row in rows.items():
         row["launches"] = main_launches[name]
-    log("decode path: " + json.dumps(decode))
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     print(json.dumps({"ok": True, "device": {

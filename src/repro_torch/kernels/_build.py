@@ -24,7 +24,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "build", "load", "build_dir"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"block_combine": "block_combine.cu", "quantize": "quantize.cu"}
+SOURCES = {"block_combine": "block_combine.cu", "quantize": "quantize.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,1 +1,2 @@
-"""Entry points: the decode step builder and the serving driver."""
+"""Entry points: the step builders, the serving driver and the training
+driver."""

@@ -6,8 +6,10 @@ K/V rings ``(B, S, KV, dh)``, so the parity tests compare like with like.
 This slice ports what the fixed-batch decode loop and the short-sequence
 forward run: RMSNorm, the activations, RoPE (without M-RoPE), GQA attention
 with causal, window and chunk masks, the ring K/V cache in bf16 or int8, and
-the MLP. ``attention`` at T > ``FLASH_THRESHOLD`` is the flash path of the
-training slice and raises here.
+the MLP. ``attention`` at T > ``FLASH_THRESHOLD`` takes the flash path,
+as the reference does: :func:`repro_torch.kernels.flash_attention.flash_sdpa`,
+the hand-written kernel on a CUDA tensor and the port of the reference's
+``_flash_sdpa`` on the CPU, differentiable either way.
 
 Compute follows the reference's dtype rules: matmuls in the activation
 dtype, attention logits and softmax in f32, RoPE in f32 and rounded back.
@@ -23,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
 __all__ = ["Params", "AttnConfig", "FLASH_THRESHOLD", "dense_init",
@@ -31,7 +34,7 @@ __all__ = ["Params", "AttnConfig", "FLASH_THRESHOLD", "dense_init",
 
 Params = dict
 
-FLASH_THRESHOLD = 1024   # direct sdpa at or below; flash (training slice) above
+FLASH_THRESHOLD = 1024   # direct sdpa at or below, flash above
 
 
 # --------------------------------------------------------------------------
@@ -202,15 +205,18 @@ def _sdpa(q, k, v, mask, n_heads: int, n_kv: int) -> torch.Tensor:
 
 def attention(p: Params, cfg: AttnConfig, x: torch.Tensor,
               positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence attention, T <= ``FLASH_THRESHOLD``. Above it the
-    reference switches to its flash path, which is the training slice's."""
-    T = x.shape[1]
-    if T > FLASH_THRESHOLD:
-        raise NotImplementedError("flash attention: training slice")
+    """Full-sequence attention (training / prefill): the direct form up to
+    ``FLASH_THRESHOLD`` positions, flash attention above."""
+    B, T, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    mask = _attn_mask(T, T, cfg.causal, cfg.sliding_window, cfg.chunk_size,
-                      device=x.device)
-    out = _sdpa(q, k, v, mask, cfg.n_heads, cfg.n_kv_heads)
+    if T > FLASH_THRESHOLD:
+        out = fa.flash_sdpa(q, k, v, causal=cfg.causal,
+                            window=cfg.sliding_window,
+                            chunk=cfg.chunk_size).reshape(B, T, -1)
+    else:
+        mask = _attn_mask(T, T, cfg.causal, cfg.sliding_window,
+                          cfg.chunk_size, device=x.device)
+        out = _sdpa(q, k, v, mask, cfg.n_heads, cfg.n_kv_heads)
     return out @ p["wo"].to(x.dtype)
 
 

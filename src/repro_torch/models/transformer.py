@@ -8,6 +8,13 @@ caches are nested dicts in the reference's layout, so
 :func:`repro_torch.interop.params_from_reference` carries the reference's
 ``init_params`` output across unchanged.
 
+:func:`forward`, :func:`chunked_ce_loss` and :func:`loss_fn` run under
+autograd for training: where ``cfg.remat`` is set each sublayer is
+recomputed in the backward (``torch.utils.checkpoint``, the reference's
+per-sublayer ``jax.checkpoint``), and so is each cross-entropy chunk. The
+reference's ``"dots"`` remat policy (keep the matmul outputs) changes only
+memory and time; the port recomputes whole sublayers under either policy.
+
 This slice builds the dense decoders (sublayer kinds ``attn`` and ``mlp``,
 token inputs). A config with another kind, M-RoPE, embeddings input or an
 encoder is a valid config, but building or running its model raises
@@ -20,6 +27,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.transport import resolve_device
 from repro_torch.models import layers as L
@@ -27,7 +35,8 @@ from repro_torch.models.layers import Params
 
 __all__ = ["MoESettings", "SubSpec", "ModelConfig", "PORTED_KINDS",
            "check_supported", "init_params", "init_cache", "embed_inputs",
-           "forward", "unembed", "decode_step", "advance_pos"]
+           "forward", "unembed", "chunked_ce_loss", "loss_fn", "decode_step",
+           "advance_pos"]
 
 PORTED_KINDS = ("attn", "mlp")
 _KINDS_ITEM = ("ROADMAP.md queue 1, 'Next' item 3 (other sublayer kinds and "
@@ -217,7 +226,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _period(tree, i: int):
     """Period ``i`` of a stacked parameter or cache dict: views, so writes
-    into a cache's period land in the stacked tensor."""
+    into a cache's period land in the stacked tensor. A leaf may also be a
+    list of per-period tensors (the train step's gradient leaves)."""
     return {k: (_period(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
 
@@ -241,8 +251,10 @@ def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
 def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                positions, caches=None):
     """Loop over periods (the reference scans); returns (x, caches). Decode
-    writes each period's new K/V into the stacked caches in place."""
-    n = layer_params[0][0]["norm"]["scale"].shape[0]
+    writes each period's new K/V into the stacked caches in place. Under
+    autograd with ``cfg.remat`` each sublayer is checkpointed."""
+    n = len(layer_params[0][0]["norm"]["scale"])
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i in range(n):
         ci = 0
         for pos, layer in enumerate(pattern):
@@ -251,13 +263,17 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                 if caches is not None and s.kind == "attn":
                     c = _period(caches[ci], i)
                     ci += 1
-                x = _apply_sub(_period(layer_params[pos][si], i), s, cfg, x,
-                               positions, c)
+                sp = _period(layer_params[pos][si], i)
+                if remat:
+                    x = checkpoint(_apply_sub, sp, s, cfg, x, positions, c,
+                                   use_reentrant=False)
+                else:
+                    x = _apply_sub(sp, s, cfg, x, positions, c)
     return x, caches
 
 
 def embed_inputs(params: Params, cfg: ModelConfig, inputs: dict) -> tuple:
-    tokens = inputs["tokens"]
+    tokens = inputs["tokens"].long()
     # gather, then cast: the same values as the reference's cast-then-gather
     x = params["embed"][tokens].to(cfg.compute_dtype)
     B, T = x.shape[:2]
@@ -280,6 +296,46 @@ def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return x @ w.to(x.dtype)
+
+
+def _ce_chunk(params: Params, cfg: ModelConfig, xc: torch.Tensor,
+              yc: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one chunk: f32 logits, ``logsumexp`` minus
+    the label's logit."""
+    logits = unembed(params, cfg, xc).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+    return torch.sum(lse - ll)
+
+
+def chunked_ce_loss(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over ``(B, T)`` without holding ``(B, T, V)``
+    logits: sequence chunks of ``chunk`` positions (and the remainder),
+    summed in order, as the reference scans them. Under autograd each chunk
+    is checkpointed, so the backward recomputes its logits instead of
+    keeping every chunk's ``(B, chunk, V)`` f32 logits alive."""
+    B, T, _ = x.shape
+    chunk = min(chunk, T)
+    grad = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, T, chunk):
+        xc, yc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if grad:
+            tot = tot + checkpoint(_ce_chunk, params, cfg, xc, yc,
+                                   use_reentrant=False)
+        else:
+            tot = tot + _ce_chunk(params, cfg, xc, yc)
+    return tot / (B * T)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, inputs: dict,
+            aux_weight: float = 0.01) -> tuple:
+    """``(ce + aux_weight * aux, {"ce", "aux"})``; ``aux`` is the MoE
+    balance loss, 0 for the dense models this slice builds."""
+    x, aux = forward(params, cfg, inputs)
+    ce = chunked_ce_loss(params, cfg, x, inputs["labels"])
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Bitwise, NaN bits included: each kernel and its plain version run on the
-same device on the same inputs (made by numpy from a seed). The file imports
+same device on the same inputs (made by numpy from a seed). The flash
+attention kernel is held within a tolerance instead
+(``flash_attention.flash_errors``): its products accumulate in another
+order and its 64-key tiles round ``p`` to bf16 against another running max
+than the plain version's 512-key tiles. The file imports
 no JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 Without a card every test skips (a CUDA kernel has no CPU mode).
@@ -14,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import block_combine, quantize, ref
+from repro_torch.kernels import block_combine, flash_attention, quantize, ref
 
 pytestmark = pytest.mark.gpu
 
@@ -197,3 +201,88 @@ def test_int8_decode_runs_the_kernels_and_matches_plain(cuda, monkeypatch):
     plain = serve.serve_loop(args, cfg, keep_logits=True)
     assert np.array_equal(run.tokens, plain.tokens)
     _assert_bitwise(run.logits, plain.logits)
+
+
+# flash kernel vs plain: each output element against its own size plus its
+# row's largest, the lse absolutely (flash_attention.flash_errors)
+FLASH_MASKS = flash_attention.FLASH_MASKS
+
+
+def _flash_inputs(rng, B, T, H, KV, dh, dtype, device):
+    return [torch.from_numpy(rng.standard_normal((B, T, n, dh)).astype(
+        np.float32)).to(dtype).to(device) for n in (H, KV, KV)]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("mask", list(FLASH_MASKS))
+@pytest.mark.parametrize("T", [1025, 1536])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_flash_kernel_matches_plain(rep, dh, T, mask, dt, cuda):
+    """Every mask kind, T a multiple of the 64-row block and not, grouped
+    heads read in place. The window (200) and the chunks (96) leave the
+    first key tile of many rows fully masked."""
+    causal, window, chunk = FLASH_MASKS[mask]
+    q, k, v = _flash_inputs(np.random.default_rng(T + dh + rep), 2, T,
+                            2 * rep, 2, dh, DTYPES[dt], cuda)
+    before = flash_attention.flash_attention.launches
+    out, lse = flash_attention.flash_attention(
+        q, k, v, causal=causal, window=window, chunk=chunk)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    want, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window, chunk=chunk)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert lse.shape == (2, 2 * rep, T) and lse.dtype == torch.float32
+    assert bool(torch.isfinite(out.float()).all())
+    share, lse_err = flash_attention.flash_errors(out, lse, want, want_lse)
+    assert share <= flash_attention.FLASH_TOL[DTYPES[dt]]
+    assert lse_err <= flash_attention.FLASH_LSE_TOL[DTYPES[dt]]
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _flash_inputs(np.random.default_rng(0), 1, 1100, 2, 2, 96,
+                            torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention(q, k, v)
+    q, k, v = _flash_inputs(np.random.default_rng(0), 1, 1100, 2, 2, 64,
+                            torch.bfloat16, cuda)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q.transpose(1, 2).contiguous()
+                                        .transpose(1, 2), k, v)
+
+
+def test_flash_training_step_runs_the_kernel(cuda, monkeypatch):
+    """Reduced MiniCPM-2B at head_dim 64 and T = 1088 through the port's
+    train step on the card: each layer's attention launches the kernel in
+    the forward and again in the recompute, and the loss and gradient norm
+    agree with the same step on the plain version: within 2.5e-3 relative,
+    about ten times the gap an H100 reads (PERF.md)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import step_fns
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.optimizers import adamw
+    cfg = dataclasses.replace(get_config("minicpm_2b", reduced=True),
+                              head_dim=64, remat=True)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1088))
+                                 .astype(np.int32)).to(cuda)
+             for k in ("tokens", "labels")}
+    kernel = flash_attention.flash_attention
+    vecs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(flash_attention, "flash_attention",
+                                ref.flash_attention_ref)
+        opt = adamw(1e-3)
+        step = step_fns.make_train_step(cfg, optimizer=opt)
+        params = tf.init_params(cfg, 0, cuda)
+        before = kernel.launches
+        _, _, vec = step(params, opt.init(params), batch)
+        # forward and recompute in every layer; none on the plain run
+        assert kernel.launches - before == (0 if plain else 2 * cfg.n_layers)
+        vecs.append(vec.cpu().numpy())
+    assert np.isfinite(vecs[0]).all()
+    np.testing.assert_allclose(vecs[0], vecs[1], rtol=2.5e-3)

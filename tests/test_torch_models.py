@@ -277,13 +277,30 @@ def test_forward_logits_match(arch, dt, T):
     _close(got, want, TOL[dt], f"{arch} forward logits")
 
 
-def test_attention_refuses_flash_lengths():
-    jcfg, cfg = _configs("minicpm_2b", "f32")
-    p = tf.init_params(cfg, 0, "cpu")
-    tok = torch.zeros((1, layers.FLASH_THRESHOLD + 1), dtype=torch.long)
-    with pytest.raises(NotImplementedError,
-                       match="flash attention: training slice"):
-        tf.forward(p, cfg, {"tokens": tok})
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["minicpm_2b", "granite_3_8b"])
+def test_attention_flash_path_matches(arch, dt):
+    """T = FLASH_THRESHOLD + 1, the shortest sequence on the flash path:
+    the port's ``attention`` against the reference's, with the first
+    attention sublayer's params (MiniCPM-2B is MHA, Granite-3-8B groups 4
+    query heads over 2 K/V heads)."""
+    jcfg, cfg = _configs(arch, dt)
+    jp, p = _params(jcfg)
+    s = cfg.pattern[0][0]
+    T = layers.FLASH_THRESHOLD + 1
+    x = np.random.default_rng(T).standard_normal(
+        (2, T, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(T, dtype=np.int32), (2, T))
+    jsp = jax.tree.map(lambda a: a[0], jp["layers"][0][0])
+    want = jax.jit(ref_layers.attention, static_argnums=1)(
+        {k: jsp[k] for k in ("wq", "wk", "wv", "wo")},
+        jcfg.attn_cfg(jcfg.pattern[0][0]), jnp.asarray(x, DTYPES[dt][0]),
+        jnp.asarray(pos))
+    sp = tf._period(p["layers"][0][0], 0)
+    with torch.no_grad():
+        got = layers.attention(sp, cfg.attn_cfg(s), _tensor(x, DTYPES[dt][1]),
+                               torch.from_numpy(pos.copy()))
+    _close(got, want, TOL[dt], f"{arch} attention at T={T}")
 
 
 def _record_quantize(monkeypatch):
