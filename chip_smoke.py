@@ -33,16 +33,21 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``FLASH_LSE_TOL`` (both in ``kernels/flash_attention.py``): 1 and 4
    query heads per K/V head, head_dim 64 and 128, causal, window, chunk
    and full masks, T = 1025, 1536 and 4096, f32 and bf16 (the window and
-   chunks leave the first key tile of many rows fully masked), then at the
-   training path's shape (4, 4096, 36, 64) bf16 causal, timed beside SDPA;
-7. the training main path at full width: MiniCPM-2B through the port's
+   chunks leave the first key tile of many rows fully masked); head_dim 12
+   and 16 (zero-padded by the wrapper), 1 and 2 query heads per K/V head,
+   at T = 1025 and 1088, every mask, f32 and bf16; then at the training
+   path's shape (4, 4096, 36, 64) bf16 causal, timed in turns with SDPA
+   (kernel, SDPA, kernel), with ptxas's report of the bf16 kernel;
+7. the training main path at full width: MiniCPM-2B's seeded weights drawn
+   on the card (timed) and checked against the CPU's draw, then the port's
    ``train_loop`` at seq 4096, batch 4, for ``TRAIN["steps"]`` steps, its
    batches on the card equal to the CPU's, every step's loss and grad norm
    finite and within tolerance of the same steps with the plain flash
    version, the flash launches counted (forward and recompute, every layer,
-   every step), one step traced; and a reduced MiniCPM-2B at T = 1088
-   (head_dim 64, the kernel's width) trained on the card within bf16
-   tolerance of the port on the CPU.
+   every step), one step traced; and a reduced MiniCPM-2B at its own
+   head_dim 12 and T = 1088: its weights drawn on the card within 2 ulp of
+   the CPU's, and trained on the card within bf16 tolerance of the port on
+   the CPU.
 
 In phases 3, 5 and 7 the kernels' launch counters are zeroed just before the
 main path and read just after, and must show that the kernels carried it.
@@ -77,6 +82,7 @@ from repro_torch.core import (CollectiveConfig, LocalTransport,  # noqa: E402
                               structured_all_reduce)
 from repro_torch.configs.base import (decode_config, get_arch,  # noqa: E402
                                       get_config)
+from repro_torch.data import threefry  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, block_combine, quantize, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -125,6 +131,11 @@ DECODE = dict(arch="minicpm_2b", batch=16, cache_len=8192, steps=32, seed=0)
 TRAIN = dict(arch="minicpm_2b", seq_len=4096, global_batch=4, accum=1,
              steps=3, lr=1e-4, seed=0, log_every=1)
 FLASH_LENGTHS = (1025, 1536, 4096)
+# the reduced configs' head_dims, which the wrapper zero-pads to 64
+PADDED_DIMS, PADDED_LENGTHS = (12, 16), (1025, 1088)
+# seeded weights, card against CPU: the draw is IEEE operations only, so
+# equal in practice; the limit is the port's 2 ulp of f32
+INIT_ULP = 2
 # training, kernel vs plain flash (same params and batches): each step's
 # loss and grad norm within TRAIN_TOL relative, about ten times the gaps a
 # sound kernel reads (PERF.md); reduced training, card vs CPU: losses
@@ -764,20 +775,22 @@ def flash_phase(dev, path_shape) -> dict:
         worst[dt, "lse"] = max(worst[dt, "lse"], lse_err)
         return share, lse_err
 
+    cases = [(T, dh, rep) for T in FLASH_LENGTHS for dh in fa.HEAD_DIMS
+             for rep in (1, 4)]
+    cases += [(T, dh, rep) for T in PADDED_LENGTHS for dh in PADDED_DIMS
+              for rep in (1, 2)]
     checks = 0
-    for T in FLASH_LENGTHS:
-        for dh in fa.HEAD_DIMS:
-            for rep in (1, 4):
-                for mask, (causal, window, chunk) in fa.FLASH_MASKS.items():
-                    for dt in (torch.float32, torch.bfloat16):
-                        q, k, v = (torch.randn((1, T, n, dh), generator=gen,
-                                               device=dev).to(dt)
-                                   for n in (rep * 2, 2, 2))
-                        kw = dict(causal=causal, window=window, chunk=chunk)
-                        check(fa.flash_attention(q, k, v, **kw),
-                              ref.flash_attention_ref(q, k, v, **kw), dt,
-                              f"flash T={T} dh={dh} rep={rep} {mask} {dt}")
-                        checks += 1
+    for T, dh, rep in cases:
+        for mask, (causal, window, chunk) in fa.FLASH_MASKS.items():
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.randn((1, T, n, dh), generator=gen,
+                                       device=dev).to(dt)
+                           for n in (rep * 2, 2, 2))
+                kw = dict(causal=causal, window=window, chunk=chunk)
+                check(fa.flash_attention(q, k, v, **kw),
+                      ref.flash_attention_ref(q, k, v, **kw), dt,
+                      f"flash T={T} dh={dh} rep={rep} {mask} {dt}")
+                checks += 1
     torch.cuda.synchronize()
     log(f"  flash: {checks} cases within tolerance of the plain version; "
         "worst out error (share of |want| + row max) / lse error: "
@@ -795,10 +808,16 @@ def flash_phase(dev, path_shape) -> dict:
                            f"flash at {list(path_shape)}")
     del out, lse, want, wlse
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    t_k = time_ms(lambda: fa.flash_attention(q, k, v))
-    t_p = time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=5)
+    # in turns: kernel, SDPA, kernel
+    t_k1 = time_ms(lambda: fa.flash_attention(q, k, v))
     t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
+    t_k2 = time_ms(lambda: fa.flash_attention(q, k, v))
+    t_k = (t_k1 + t_k2) / 2
+    t_p = time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=5)
+    ptxas = _build.ptxas_info("flash_attention", "flash_fwd_wgmma")
+    for line in ptxas:
+        log(f"  ptxas: {line}")
     flops, nbytes = flash_work(B, T, H, H, dh)
     t_ops = flops / BF16_TC_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -813,9 +832,11 @@ def flash_phase(dev, path_shape) -> dict:
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": t_l, "shape": list(path_shape), "flops": flops,
            "bytes": nbytes, "tflops_per_s": flops / t_k / 1e9,
-           "err_share": share, "lse_err": lse_err, "plain_backward_ms": t_b}
+           "err_share": share, "lse_err": lse_err, "plain_backward_ms": t_b,
+           "kernel_ms_in_turns": [t_k1, t_k2], "ptxas": ptxas}
     log(f"  flash_attention {list(path_shape)} bf16 causal: kernel {t_k:.4f}"
-        f" ms ({row['tflops_per_s']:.1f} TFLOP/s), plain {t_p:.3f} ms, bound "
+        f" ms (in turns {t_k1:.4f}, SDPA {t_l:.4f}, {t_k2:.4f}; "
+        f"{row['tflops_per_s']:.1f} TFLOP/s), plain {t_p:.3f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4e} FLOP, "
         f"{nbytes} bytes), SDPA {t_l:.4f} ms; out error {share:.2e} of "
         f"|want| + row max, lse error {lse_err:.2e}; plain backward "
@@ -869,7 +890,15 @@ def train_phase(dev) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
-    run = train.train_loop(args, cfg=cfg)
+    # the seeded weights, drawn on the card as train_loop draws them
+    params, init_s = wall(lambda: tf.init_params(cfg, args.seed, dev))
+    embed_ulp = embed_vs_cpu(params["embed"], cfg, args.seed)
+    log(f"  full-width {cfg.name} weights drawn on the card in {init_s:.3f} s"
+        f" ({sum(t.numel() for t in _leaves(params))} values); the first "
+        f"{INIT_CHECK} of the embedding within {embed_ulp} ulp of the CPU's "
+        f"(limit {INIT_ULP})")
+    run = train.train_loop(args, params, cfg)
+    del params
     torch.cuda.synchronize()
     launches = counters()
     peak = torch.cuda.max_memory_allocated()
@@ -891,7 +920,9 @@ def train_phase(dev) -> dict:
     # (forward, recompute and 2.5x for the backward) beside them
     attn_flops, _ = flash_work(B, T, cfg.n_heads, cfg.n_kv_heads, cfg.hdim)
     model_flops = 8 * n_all * B * T + L * attn_flops * (2 + 2.5)
-    res = {"params": n_all, "launches": launches, "max_memory_bytes": peak,
+    res = {"params": n_all, "init_seconds": init_s,
+           "init_embed_ulp_vs_cpu": embed_ulp,
+           "launches": launches, "max_memory_bytes": peak,
            "losses": met[:, 0].tolist(), "grad_norms": met[:, 3].tolist(),
            "step_seconds": secs, "median_step_s": steady,
            "tokens_per_step": B * T,
@@ -942,14 +973,58 @@ def train_phase(dev) -> dict:
     return res
 
 
+INIT_CHECK = 1 << 20     # elements of the full-width embedding checked
+
+
+def ulp_gap(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest distance in f32 ulp between two f32 tensors."""
+    a, b = (x.detach().to("cpu", torch.float32).contiguous().view(
+        torch.int32).long() for x in (got, want))
+    a, b = (torch.where(x < 0, -(x & 0x7FFFFFFF), x) for x in (a, b))
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def embed_vs_cpu(embed: torch.Tensor, cfg, seed: int) -> int:
+    """The first ``INIT_CHECK`` values of the card's embedding against the
+    CPU's draw of them (``init_params``' key 0 of ``split(key, 6)``, scale
+    0.02): the largest ulp gap, which must be within ``INIT_ULP``."""
+    key = threefry.split(threefry.prng_key(seed), 6)[0]
+    want = threefry.normal(key, (cfg.vocab_size, cfg.d_model), 0,
+                           INIT_CHECK, "cpu") * torch.tensor(
+        0.02, dtype=torch.float32)
+    got = embed.reshape(-1)[:INIT_CHECK]
+    gap = ulp_gap(got.float(), want.to(embed.dtype).float())
+    if gap > INIT_ULP:
+        raise AssertionError(f"full-width embedding: card and CPU draws "
+                             f"{gap} ulp apart (limit {INIT_ULP})")
+    return gap
+
+
+def weights_vs_cpu(cfg, seed: int, dev) -> int:
+    """``init_params(cfg, seed)`` on the card against the CPU, every leaf:
+    the largest ulp gap, which must be within ``INIT_ULP``."""
+    card, host = tf.init_params(cfg, seed, dev), tf.init_params(cfg, seed,
+                                                                "cpu")
+    gap = max(ulp_gap(a.float(), b.float())
+              for a, b in zip(_leaves(card), _leaves(host)))
+    if gap > INIT_ULP:
+        raise AssertionError(f"reduced {cfg.name} weights: card and CPU "
+                             f"draws {gap} ulp apart (limit {INIT_ULP})")
+    return gap
+
+
 def train_reduced_check(dev) -> dict:
-    """Reduced MiniCPM-2B at head_dim 64 (the kernel's width), T = 1088,
-    trained 5 steps on the card (flash kernel) and on the CPU (the plain
-    version, which the CPU tests hold against the JAX package) from the
-    same params: losses within 2**-8 relative."""
-    cfg = dataclasses.replace(get_config(TRAIN["arch"], reduced=True),
-                              head_dim=64)
+    """Reduced MiniCPM-2B at its own head_dim (12; the wrapper zero-pads it
+    to the kernel's 64), T = 1088: its seeded weights drawn on the card
+    against the CPU's, every leaf within ``INIT_ULP``; then trained 5 steps
+    on the card (flash kernel) and on the CPU (the plain version, which the
+    CPU tests hold against the JAX package) from the same params: losses
+    within 2**-8 relative."""
+    cfg = get_config(TRAIN["arch"], reduced=True)
     kw = dict(reduced=True, seq_len=1088, global_batch=2, steps=5, lr=1e-3)
+    init_gap = weights_vs_cpu(cfg, 0, dev)
+    log(f"  reduced {cfg.name} weights, card vs CPU: every leaf within "
+        f"{init_gap} ulp (limit {INIT_ULP})")
     cpu = tf.init_params(cfg, 0, "cpu")
     zero_counters()
     card = train.train_loop(train_args(**kw, device=dev), _to(cpu, dev), cfg)
@@ -962,10 +1037,11 @@ def train_reduced_check(dev) -> dict:
     a = np.array([loss for _, loss in card.history])
     b = np.array([loss for _, loss in host.history])
     err = close_rel(a, b, REDUCED_TOL, "reduced training, card vs CPU")
-    log(f"  reduced {cfg.name} (head_dim 64) at T=1088, card vs CPU: losses "
-        f"{a.tolist()} vs {b.tolist()}, relative error {err:.2e} (limit "
-        f"{REDUCED_TOL:.2e})")
-    return {"card": a.tolist(), "cpu": b.tolist(), "max_rel_err": err}
+    log(f"  reduced {cfg.name} (head_dim {cfg.hdim}) at T=1088, card vs "
+        f"CPU: losses {a.tolist()} vs {b.tolist()}, relative error "
+        f"{err:.2e} (limit {REDUCED_TOL:.2e})")
+    return {"card": a.tolist(), "cpu": b.tolist(), "max_rel_err": err,
+            "head_dim": cfg.hdim, "init_ulp_vs_cpu": init_gap}
 
 
 # ------------------------------------------------------- the decode path

@@ -2,12 +2,14 @@
 
 Each source under ``csrc/`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds):
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``.
-Libraries land in ``build/torch_kernels/`` at the repository root, named by
-a hash of the source, the shared headers and the flags, so an edited source
-rebuilds and an unchanged one loads as built. The first call that needs a kernel builds it;
-:func:`build` starts every missing build at once, one ``nvcc`` per source.
-Nothing here runs at import.
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+-Xptxas -v``. Libraries land in ``build/torch_kernels/`` at the repository
+root, named by a hash of the source, the shared headers and the flags, so an
+edited source rebuilds and an unchanged one loads as built; the compiler's
+output (ptxas's registers, spills and shared memory per kernel) is kept
+beside each library and read by :func:`ptxas_info`. The first call that
+needs a kernel builds it; :func:`build` starts every missing build at once,
+one ``nvcc`` per source. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -21,13 +23,13 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "load", "build_dir"]
+__all__ = ["SOURCES", "build", "load", "build_dir", "ptxas_info"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"block_combine": "block_combine.cu", "quantize": "quantize.cu",
            "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -86,6 +88,7 @@ def _build_locked(names) -> dict:
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
+        target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -105,3 +108,23 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 f.argtypes, f.restype = argtypes, restype
             _LIBS[name] = lib
         return lib
+
+
+def ptxas_info(name: str, kernel: str) -> list[str]:
+    """ptxas's report for each entry function of library ``name`` whose
+    mangled name holds ``kernel``, one line each: the function, then its
+    stack, spills, registers and shared memory, and any note ptxas gave it
+    (such as wgmma instructions it had to serialize)."""
+    log = _lib_path(name).with_suffix(".log").read_text()
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+            cur = [fn] if kernel in fn else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None and line.strip() and \
+                "Function properties" not in line:
+            cur.append(line.split(":", 1)[-1].strip()
+                       if line.startswith("ptxas") else line.strip())
+    return ["; ".join(c) for c in out]

@@ -8,9 +8,11 @@ and the plain backward.
   ``csrc/flash_attention.cu`` (the port of the Pallas ``_kernel`` of
   ``repro/kernels/flash_attention.py``, which is the tiled form of the
   model's ``layers._flash_sdpa``) on the current stream and counts the
-  launch in ``flash_attention.launches``; the kernel takes bf16 or f32 and
-  head_dim 64 or 128, and refuses anything else. For a CPU tensor it runs
-  the plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`.
+  launch in ``flash_attention.launches``. The kernel takes bf16 or f32 at
+  head_dim 64 or 128; any other head_dim up to 128 is zero-padded to the
+  next of the two and the output sliced back (:func:`padded_flash`), and a
+  wider one is refused. For a CPU tensor it runs the plain version,
+  :func:`repro_torch.kernels.ref.flash_attention_ref`.
 * :func:`flash_attention_backward` — the standard flash backward from the
   saved ``(q, k, v, out, lse)``, in plain PyTorch on either device (the
   reference has no backward kernel: its gradient is XLA's derivative of
@@ -33,9 +35,11 @@ import torch
 from repro_torch.kernels import _build, ref
 
 __all__ = ["HEAD_DIMS", "FLASH_MASKS", "FLASH_TOL", "FLASH_LSE_TOL",
-           "flash_errors", "flash_attention", "flash_attention_backward",
-           "FlashAttention", "flash_sdpa", "key_range"]
+           "flash_errors", "kernel_head_dim", "padded_flash",
+           "flash_attention", "flash_attention_backward", "FlashAttention",
+           "flash_sdpa", "key_range"]
 
+# the kernel's widths; a narrower head_dim runs zero-padded to one of them
 HEAD_DIMS = (64, 128)
 # the mask kinds the kernel is held to its plain version at: (causal,
 # window, chunk)
@@ -43,13 +47,14 @@ FLASH_MASKS = {"causal": (True, None, None), "window": (True, 200, None),
                "chunk": (True, None, 96), "full": (False, None, None)}
 # kernel against plain version (:func:`flash_errors`). f32 differs only in
 # the order of its sums and in expf. bf16 also rounds p to bf16 against
-# another running max (2**-9 of each weight), and the plain version rounds
-# each 512-key tile's PV product to bf16 before the sum; both round the
-# output to bf16, so the two may lie two bf16 steps apart (2**-6 of a value
-# at the bottom of its binade). Both take the same bf16 logits, so their
-# lse differ only in sum order. The limits are about three (bf16 out) to
-# ten times what the kernel reads on an H100 (PERF.md); a kernel that skips
-# one 64-key tile reads 0.9 and 0.18.
+# another running max (2**-9 of each weight), takes exp as ex2 of a fused
+# multiply-add (a few ulp of p), and the plain version rounds each 512-key
+# tile's PV product to bf16 before the sum; both round the output to bf16,
+# so the two may lie two bf16 steps apart (2**-6 of a value at the bottom of
+# its binade). Both take the same bf16 logits, so their lse differ only in
+# sum order and exp's ulps. The limits are about two (bf16 out) to ten times
+# what the kernel reads on an H100 (PERF.md); a kernel that drops one
+# 128-key tile reads 0.600 and 0.192.
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
 FLASH_LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
 BACKWARD_BLOCK = 256
@@ -121,6 +126,36 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window,
             raise ValueError(f"{name} must be >= 1 or None, got {x}")
 
 
+def kernel_head_dim(dh: int) -> int:
+    """The kernel width that head_dim ``dh`` runs at: the least of
+    ``HEAD_DIMS`` that holds it. Raises above the widest."""
+    for width in HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"the flash kernel takes head_dim up to {HEAD_DIMS[-1]},"
+                     f" got {dh}")
+
+
+def padded_flash(run, q, k, v, *, causal: bool = True,
+                 window: int | None = None, chunk: int | None = None):
+    """``run(q, k, v, scale=, causal=, window=, chunk=)`` at the kernel's
+    width: q, k and v zero-padded on head_dim to :func:`kernel_head_dim`,
+    the scale ``1/sqrt(dh)`` of the true head_dim, and ``out`` sliced back
+    to it. The zero columns add nothing to a logit or to an output column,
+    so ``out`` and ``lse`` are those of the unpadded call. ``run`` is the
+    kernel's launch on the card; the CPU tests pass the plain version."""
+    dh = q.shape[-1]
+    width = kernel_head_dim(dh)
+    if width != dh:
+        q, k, v = (torch.nn.functional.pad(x, (0, width - dh))
+                   for x in (q, k, v))
+    out, lse = run(q, k, v, scale=1.0 / math.sqrt(dh), causal=causal,
+                   window=window, chunk=chunk)
+    if width != dh:
+        out = out[..., :dh].contiguous()
+    return out, lse
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     chunk: int | None = None):
@@ -130,12 +165,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        chunk=chunk)
-    B, T, H, dh = q.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {dh}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the flash kernel takes contiguous q, k and v")
+    return padded_flash(_launch, q, k, v, causal=causal, window=window,
+                        chunk=chunk)
+
+
+def _launch(q, k, v, *, scale: float, causal: bool, window, chunk):
+    """One launch of the kernel on contiguous CUDA q, k, v of a head_dim in
+    ``HEAD_DIMS``."""
+    B, T, H, dh = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if out.numel():
@@ -146,7 +185,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                 k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                 lse.data_ptr(), B, T, H, k.shape[2],
                                 int(causal), window or 0, chunk or 0,
-                                1.0 / math.sqrt(dh), stream)
+                                scale, stream)
         if rc:
             raise RuntimeError(f"fa_forward launch failed: CUDA error {rc} "
                                f"({lib.fa_error_string(rc).decode()})")

@@ -69,7 +69,7 @@ def dequantize_int8_ref(q: torch.Tensor, scale: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
-                        chunk: int | None = None):
+                        chunk: int | None = None, scale: float | None = None):
     """The port of the reference's ``layers._flash_sdpa`` (layers.py:324),
     with its blocking (512-query by 512-key tiles) and its roundings: the
     logit tile is the product in the input dtype, then cast to f32 and
@@ -80,12 +80,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, T, H, dh); k, v: (B, T, KV, dh), H a multiple of KV. Returns
     ``(out (B, T, H, dh), lse (B, H, T) f32)``, ``lse = m + log(l)`` per row
-    (what the backward needs; the reference does not return it)."""
+    (what the backward needs; the reference does not return it). ``scale``
+    defaults to the reference's ``1/sqrt(dh)``; a caller that zero-pads
+    head_dim passes the true width's."""
     B, Tq, H, dh = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     rep = H // KV
     dt = q.dtype
-    scale = 1.0 / math.sqrt(dh)
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
     bq, bk = min(FLASH_BLOCK, Tq), min(FLASH_BLOCK, Tk)
     pad_q, pad_k = (-Tq) % bq, (-Tk) % bk
     if pad_q:

@@ -25,35 +25,60 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.data import threefry
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
-__all__ = ["Params", "AttnConfig", "FLASH_THRESHOLD", "dense_init",
-           "rmsnorm_init", "rmsnorm", "act_fn", "rope_freqs", "apply_rope",
+__all__ = ["Params", "AttnConfig", "FLASH_THRESHOLD", "INIT_CHUNK",
+           "dense_init", "rmsnorm_init", "rmsnorm", "act_fn", "rope_freqs", "apply_rope",
            "attention", "quantize_kv_rows", "attention_decode", "mlp"]
 
 Params = dict
 
 FLASH_THRESHOLD = 1024   # direct sdpa at or below, flash above
+# normal draws per piece in dense_init: 2**24 elements keep the threefry
+# hash's int64 and the erf_inv's f64 temporaries to 128 MB each
+INIT_CHUNK = 1 << 24
 
 
 # --------------------------------------------------------------------------
 # initialization
 # --------------------------------------------------------------------------
 
-def dense_init(gen: torch.Generator, shape, scale: float | None = None,
-               dtype=torch.float32, periods: int | None = None
-               ) -> torch.Tensor:
-    """Normal weights times ``scale`` (default ``1/sqrt(shape[0])``), drawn
-    in f32 from ``gen`` on its device, then cast to ``dtype``. With
-    ``periods`` the tensor is ``(periods, *shape)``: one draw per period of
-    a stacked layer."""
+def dense_init(key: torch.Tensor, shape, scale: float | None = None,
+               dtype=torch.float32, device=None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's ``dense_init``: ``jax.random.normal(key, shape)``
+    times ``scale`` (default ``1/sqrt(fan_in)``), both f32, cast to
+    ``dtype``. ``key`` is a threefry key on the host; the values are drawn
+    on ``device`` in pieces of ``INIT_CHUNK`` flat elements (each element
+    hashes its own index, so the pieces change no bit), which bounds the
+    hash's temporaries. With ``out`` (``shape``, ``dtype``, contiguous) the
+    values are written there."""
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    full = tuple(shape) if periods is None else (periods, *shape)
-    w = torch.randn(full, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (w * scale).to(dtype)
+    if out is None:
+        out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    flat = out.view(-1)
+    s = torch.tensor(scale, dtype=torch.float32, device=out.device)
+    n = flat.numel()
+    for i0 in range(0, n, INIT_CHUNK):
+        i1 = min(n, i0 + INIT_CHUNK)
+        part = threefry.normal(key, shape, i0, i1, out.device).view(-1)
+        flat[i0:i1] = (part * s).to(dtype)
+    return out
+
+
+def _stacked(keys, shapes: dict, dtype, device) -> Params:
+    """``{name: (n, *shape)}`` leaves, period ``i`` of leaf ``j`` drawn by
+    :func:`dense_init` from key ``j`` of ``keys[i]``; ``shapes`` maps each
+    name to ``(shape, scale)``."""
+    p = {name: torch.empty((len(keys), *shape), dtype=dtype, device=device)
+         for name, (shape, _) in shapes.items()}
+    for i, ks in enumerate(keys):
+        for j, (name, (shape, scale)) in enumerate(shapes.items()):
+            dense_init(ks[j], shape, scale, dtype, out=p[name][i])
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -142,16 +167,17 @@ class AttnConfig:
     use_rope: bool = True
 
 
-def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
-              periods: int | None = None) -> Params:
+def attn_init(keys, cfg: AttnConfig, dtype=torch.float32,
+              device=None) -> Params:
+    """The reference's ``attn_init`` for each key of ``keys`` (one per
+    period), stacked along a leading period axis: each key splits in four,
+    for ``wq``, ``wk``, ``wv`` and ``wo`` (scale ``1/sqrt(H * dh)``)."""
     D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
-        "wq": dense_init(gen, (D, H * dh), dtype=dtype, periods=periods),
-        "wk": dense_init(gen, (D, KV * dh), dtype=dtype, periods=periods),
-        "wv": dense_init(gen, (D, KV * dh), dtype=dtype, periods=periods),
-        "wo": dense_init(gen, (H * dh, D), scale=1.0 / math.sqrt(H * dh),
-                         dtype=dtype, periods=periods),
-    }
+    shapes = {"wq": ((D, H * dh), None), "wk": ((D, KV * dh), None),
+              "wv": ((D, KV * dh), None),
+              "wo": ((H * dh, D), 1.0 / math.sqrt(H * dh))}
+    return _stacked([threefry.split(k, 4) for k in keys], shapes, dtype,
+                    device)
 
 
 def _attn_mask(Tq: int, Tk: int, causal: bool, window: int | None,
@@ -295,16 +321,16 @@ def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor,
 # MLPs
 # --------------------------------------------------------------------------
 
-def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, gated: bool,
-             dtype=torch.float32, periods: int | None = None) -> Params:
-    p = {"w_in": dense_init(gen, (d_model, d_ff), dtype=dtype,
-                            periods=periods),
-         "w_out": dense_init(gen, (d_ff, d_model), dtype=dtype,
-                             periods=periods)}
+def mlp_init(keys, d_model: int, d_ff: int, gated: bool,
+             dtype=torch.float32, device=None) -> Params:
+    """The reference's ``mlp_init`` for each key of ``keys`` (one per
+    period), stacked: each key splits in three, for ``w_in``, ``w_out`` and
+    ``w_gate``."""
+    shapes = {"w_in": ((d_model, d_ff), None), "w_out": ((d_ff, d_model), None)}
     if gated:
-        p["w_gate"] = dense_init(gen, (d_model, d_ff), dtype=dtype,
-                                 periods=periods)
-    return p
+        shapes["w_gate"] = ((d_model, d_ff), None)
+    return _stacked([threefry.split(k, 3) for k in keys], shapes, dtype,
+                    device)
 
 
 def mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:

@@ -30,6 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.transport import resolve_device
+from repro_torch.data import threefry
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Params
 
@@ -151,35 +152,51 @@ def check_supported(cfg: ModelConfig) -> None:
 # init
 # --------------------------------------------------------------------------
 
-def _sub_init(gen: torch.Generator, cfg: ModelConfig, s: SubSpec) -> Params:
-    n, dt = cfg.n_periods, cfg.param_dtype
-    norm = L.rmsnorm_init(cfg.d_model, device=gen.device, periods=n)
+def _sub_init(keys, cfg: ModelConfig, s: SubSpec, device) -> Params:
+    """The reference's ``_sub_init`` for each period key of ``keys``,
+    stacked over periods: attention takes the first half of each key's
+    split in two, the MLP the key itself."""
+    dt = cfg.param_dtype
+    norm = L.rmsnorm_init(cfg.d_model, device=device, periods=len(keys))
     if s.kind == "attn":
-        return {"norm": norm,
-                **L.attn_init(gen, cfg.attn_cfg(s), dtype=dt, periods=n)}
-    return {"norm": norm, **L.mlp_init(gen, cfg.d_model, cfg.d_ff,
-                                       cfg.gated_mlp, dt, periods=n)}
+        halves = [threefry.split(k, 2)[0] for k in keys]
+        return {"norm": norm, **L.attn_init(halves, cfg.attn_cfg(s), dt,
+                                            device)}
+    return {"norm": norm, **L.mlp_init(keys, cfg.d_model, cfg.d_ff,
+                                       cfg.gated_mlp, dt, device)}
 
 
 def init_params(cfg: ModelConfig, seed: int, device=None) -> Params:
-    """Random parameters of the reference's shapes, dtypes and init scales
-    (normal times ``1/sqrt(fan_in)``, 0.02 for the embeddings), drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA unless
-    named). The values are not the reference's: to hold the port against
-    it, carry the reference's own with ``interop.params_from_reference``."""
+    """The reference's ``init_params(jax.random.PRNGKey(seed), cfg)``, drawn
+    on ``device`` (CUDA unless named): the same threefry key tree
+    (``split(key, 6)``: the embedding from key 0, the layers from key 1,
+    the unembedding from key 2; pattern position ``pos``, sublayer ``si``
+    from ``split(fold_in(key 1, pos * 31 + si), n_periods)``), the same
+    ``jax.random.normal`` draws, scales and dtypes. The values are the
+    reference's within 2 ulp of f32 (on the CPU against jax 0.9 they agree
+    bit for bit, ``tests/test_torch_init.py``), and the card draws the same
+    bits as the CPU."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    ks = threefry.split(threefry.prng_key(seed), 6)
+    layers = []
+    for pos, layer in enumerate(cfg.pattern):
+        subs = []
+        for si, s in enumerate(layer):
+            keys = threefry.split(threefry.fold_in(ks[1], pos * 31 + si),
+                                  cfg.n_periods)
+            subs.append(_sub_init(list(keys), cfg, s, dev))
+        layers.append(tuple(subs))
     p: Params = {
-        "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), scale=0.02,
-                              dtype=cfg.param_dtype),
+        "embed": L.dense_init(ks[0], (cfg.vocab_size, cfg.d_model),
+                              scale=0.02, dtype=cfg.param_dtype, device=dev),
         "final_norm": L.rmsnorm_init(cfg.d_model, device=dev),
-        "layers": [tuple(_sub_init(gen, cfg, s) for s in layer)
-                   for layer in cfg.pattern],
+        "layers": layers,
     }
     if not cfg.tie_embeddings:
-        p["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
-                                    scale=0.02, dtype=cfg.param_dtype)
+        p["unembed"] = L.dense_init(ks[2], (cfg.d_model, cfg.vocab_size),
+                                    scale=0.02, dtype=cfg.param_dtype,
+                                    device=dev)
     return p
 
 

@@ -183,6 +183,68 @@ def test_attention_above_the_threshold_takes_the_flash_path(monkeypatch):
         assert out.shape == (1, T, 16) and len(calls) == n
 
 
+# (B, T, H, KV, dh, causal, window, chunk): head_dims the kernel lacks, each
+# run zero-padded to its kernel width (64 or 128) as the wrapper runs it on
+# the card, every mask kind, T ragged
+PADDED = {
+    "causal-gqa2-dh12": (1, 1100, 4, 2, 12, True, None, None),
+    "window-mha-dh16": (1, 1030, 2, 2, 16, True, 300, None),
+    "chunk-gqa2-dh16": (1, 1300, 2, 1, 16, True, None, 520),
+    "full-mha-dh12": (1, 1025, 2, 2, 12, False, None, None),
+    "causal-mha-dh40": (1, 1088, 2, 2, 40, True, None, None),
+    "causal-gqa2-dh96": (1, 1030, 4, 2, 96, True, None, None),
+}
+
+
+def _padded_inputs(case, dt, seed=4):
+    B, T, H, KV, dh, causal, window, chunk = PADDED[case]
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, T, n, dh)).astype(np.float32)
+            for n in (H, KV, KV)]
+    jdt, tdt = DTYPES[dt]
+    return ([jnp.asarray(a, jdt) for a in arrs],
+            [torch.from_numpy(a).to(tdt) for a in arrs],
+            dict(causal=causal, window=window, chunk=chunk), (H, KV))
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", list(PADDED))
+def test_padded_head_dim_matches_the_true_width(case, dt):
+    """The card's route for a head_dim other than 64 or 128: q, k, v
+    zero-padded to the kernel width, the scale of the true head_dim, out
+    sliced back. Run here with the plain version in the kernel's place, it
+    matches the plain version at the true width (f32 within 1e-5, bf16
+    within one bf16 step: the padded products sum the same terms with
+    zeros between them) and the reference's ``_flash_sdpa``."""
+    jin, tin, masks, heads = _padded_inputs(case, dt)
+    B, T, H, dh = tin[0].shape
+    width = fa.kernel_head_dim(dh)
+    assert width in fa.HEAD_DIMS and width >= dh and width - dh < 64
+    seen = []
+
+    def plain(q, k, v, **kw):
+        seen.append((q.shape[-1], kw["scale"]))
+        return ref.flash_attention_ref(q, k, v, **kw)
+
+    out, lse = fa.padded_flash(plain, *tin, **masks)
+    assert seen == [(width, 1.0 / np.sqrt(dh))]
+    assert out.shape == tin[0].shape and out.is_contiguous()
+    want, want_lse = ref.flash_attention_ref(*tin, **masks)
+    assert _err(out, want) <= TOL[dt]
+    assert np.abs(_np(lse) - _np(want_lse)).max() <= 1e-5 * \
+        np.abs(_np(want_lse)).max()
+    ref_out = _ref_flash(masks, heads)(*jin)
+    assert _err(out.reshape(B, T, H * dh), ref_out) <= TOL[dt]
+
+
+def test_kernel_head_dim():
+    assert [fa.kernel_head_dim(d) for d in (1, 12, 16, 63, 64, 65, 96, 128)] \
+        == [64, 64, 64, 64, 64, 128, 128, 128]
+    for dh in (129, 192, 256):
+        with pytest.raises(ValueError, match="head_dim up to 128"):
+            fa.kernel_head_dim(dh)
+
+
 def test_wrapper_refuses_bad_inputs():
     q = torch.zeros((1, 8, 3, 4))
     with pytest.raises(ValueError, match="group"):

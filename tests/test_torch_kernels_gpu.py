@@ -4,8 +4,9 @@ Bitwise, NaN bits included: each kernel and its plain version run on the
 same device on the same inputs (made by numpy from a seed). The flash
 attention kernel is held within a tolerance instead
 (``flash_attention.flash_errors``): its products accumulate in another
-order and its 64-key tiles round ``p`` to bf16 against another running max
-than the plain version's 512-key tiles. The file imports
+order and its 128-key tiles (bf16; 64 in f32) round ``p`` to bf16 against
+another running max than the plain version's 512-key tiles. The seeded
+weights are held between the card and the CPU. The file imports
 no JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 Without a card every test skips (a CUDA kernel has no CPU mode).
@@ -215,12 +216,14 @@ def _flash_inputs(rng, B, T, H, KV, dh, dtype, device):
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("mask", list(FLASH_MASKS))
-@pytest.mark.parametrize("T", [1025, 1536])
-@pytest.mark.parametrize("dh", [64, 128])
-@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("T", [1025, 1088, 1536])
+@pytest.mark.parametrize("dh", [12, 16, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4])
 def test_flash_kernel_matches_plain(rep, dh, T, mask, dt, cuda):
-    """Every mask kind, T a multiple of the 64-row block and not, grouped
-    heads read in place. The window (200) and the chunks (96) leave the
+    """Every mask kind, T a multiple of the query block and not (1025 leaves
+    one row in the last block), grouped heads read in place, the kernel's
+    two widths and the reduced configs' head_dims 12 and 16 (zero-padded
+    to 64 by the wrapper). The window (200) and the chunks (96) leave the
     first key tile of many rows fully masked."""
     causal, window, chunk = FLASH_MASKS[mask]
     q, k, v = _flash_inputs(np.random.default_rng(T + dh + rep), 2, T,
@@ -241,7 +244,7 @@ def test_flash_kernel_matches_plain(rep, dh, T, mask, dt, cuda):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
-    q, k, v = _flash_inputs(np.random.default_rng(0), 1, 1100, 2, 2, 96,
+    q, k, v = _flash_inputs(np.random.default_rng(0), 1, 1100, 2, 2, 192,
                             torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention.flash_attention(q, k, v)
@@ -255,17 +258,19 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_flash_training_step_runs_the_kernel(cuda, monkeypatch):
-    """Reduced MiniCPM-2B at head_dim 64 and T = 1088 through the port's
-    train step on the card: each layer's attention launches the kernel in
-    the forward and again in the recompute, and the loss and gradient norm
-    agree with the same step on the plain version: within 2.5e-3 relative,
-    about ten times the gap an H100 reads (PERF.md)."""
+    """Reduced MiniCPM-2B at its own head_dim (12, zero-padded to the
+    kernel's 64) and T = 1088 through the port's train step on the card:
+    each layer's attention launches the kernel in the forward and again in
+    the recompute, and the loss and gradient norm agree with the same step
+    on the plain version: within 2.5e-3 relative, about ten times the gap
+    an H100 reads (PERF.md)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import step_fns
     from repro_torch.models import transformer as tf
     from repro_torch.optim.optimizers import adamw
     cfg = dataclasses.replace(get_config("minicpm_2b", reduced=True),
-                              head_dim=64, remat=True)
+                              remat=True)
+    assert cfg.hdim not in flash_attention.HEAD_DIMS
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1088))
                                  .astype(np.int32)).to(cuda)
@@ -286,3 +291,27 @@ def test_flash_training_step_runs_the_kernel(cuda, monkeypatch):
         vecs.append(vec.cpu().numpy())
     assert np.isfinite(vecs[0]).all()
     np.testing.assert_allclose(vecs[0], vecs[1], rtol=2.5e-3)
+
+
+def test_init_params_on_the_card_are_the_cpus(cuda):
+    """One seed gives the same weights on the card as on the CPU (where
+    ``tests/test_torch_init.py`` holds them to the reference's): every
+    leaf within 2 ulp of f32, and in practice equal, since the draw is
+    IEEE operations only."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    cfg = get_config("minicpm_2b", reduced=True)
+    card, host = tf.init_params(cfg, 3, cuda), tf.init_params(cfg, 3, "cpu")
+    pairs = [(card, host)]
+    while pairs:
+        a, b = pairs.pop()
+        if isinstance(a, dict):
+            pairs += [(a[k], b[k]) for k in b]
+        elif isinstance(a, (list, tuple)):
+            pairs += list(zip(a, b))
+        else:
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            ai = a.cpu().view(torch.int32).long()
+            bi = b.view(torch.int32).long()
+            order = [torch.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ai, bi)]
+            assert int((order[0] - order[1]).abs().max()) <= 2
