@@ -6,7 +6,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 
 1. kernels: every kernel against its plain PyTorch version on the card,
    bitwise, over every op and dtype, including the main path's slab shape,
-   and its time (CUDA events, median) beside its memory bound;
+   and its time (CUDA events, median) beside its memory bound; the bf16
+   cast and ``combine2`` timed in turns with their PyTorch calls
+   (``.to(torch.bfloat16)``, ``torch.add``), and each kernel's device time
+   per launch (profiler) and host cost per call (host clock, no sync);
 2. collectives at p = 8: every ``all_reduce`` method, the kernel-carried
    outputs bitwise equal to the same engine with the plain combines and
    casts, every method within tolerance of a float64 sum, and a
@@ -19,12 +22,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 4. the int8 K/V kernels against their plain versions, bitwise, over widths
    12/64/128/256, f32 and bf16 inputs, zero rows, .5 ties, codes at +-127
    and unaligned codes, then at the decode path's own shapes (one token's
-   (576, 64) bf16 rows; the whole (4,718,592, 64) int8 ring to bf16), timed;
+   (576, 64) bf16 rows; the fused write of one token's K and V, (16, 1, 36,
+   64) each, into (16, 8192, 36, 64) int8 rings at slots 0, 4096 and 8191;
+   the whole (4,718,592, 64) int8 ring to bf16), timed, the token-sized
+   kernels by their device time per launch and host cost per call;
 5. the serving main path at full width: MiniCPM-2B (40 layers, d_model
    2304, 36 heads, 36 K/V heads, vocab 122,753) with bf16 weights and the
    int8 K/V cache, through the port's ``serve_loop``: batch 16, a ring of
-   8192, 32 greedy steps, its tokens and logits bitwise equal to the same
-   run with the plain int8 versions, and a reduced MiniCPM-2B on the card
+   8192, 32 greedy steps, one fused K/V quantize launch per layer and step,
+   its tokens and logits bitwise equal to the same run with the plain int8
+   versions, one step traced (device operations per step), and a reduced
+   MiniCPM-2B on the card
    within bf16 tolerance of the port on the CPU (which the CPU tests hold
    against the JAX package);
 6. the flash-attention kernel against its plain version (the port of the
@@ -111,6 +119,8 @@ KERNEL_FILES = {
                         "src/repro/kernels/quantize.py:75"),
     "quantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu",
                       "src/repro/kernels/quantize.py:32"),
+    "quantize_int8_into": ("src/repro_torch/kernels/csrc/quantize.cu",
+                           "src/repro/kernels/quantize.py:32"),
     "dequantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu",
                         "src/repro/kernels/quantize.py:41"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -121,6 +131,7 @@ WRAPPERS = {"combine2": block_combine.combine2,
             "compress_bf16": quantize.compress_bf16,
             "decompress_bf16": quantize.decompress_bf16,
             "quantize_int8": quantize.quantize_int8,
+            "quantize_int8_into": quantize.quantize_int8_into,
             "dequantize_int8": quantize.dequantize_int8,
             "flash_attention": fa.flash_attention}
 # phase 5: MiniCPM-2B decode, cut from the reference's decode_32k cell
@@ -215,6 +226,62 @@ def time_ms(fn, reps: int = 50) -> float:
     return float(np.median(runs))
 
 
+def in_turns(kernel, library, rounds: int = 4) -> dict:
+    """``time_ms`` of a kernel and of the PyTorch call computing the same
+    function, alternately (kernel, library, library, kernel, ...), so that
+    neither always runs first, after one untimed pass of each (the card's
+    clocks settle): each side's times, median and spread (the range over
+    the median)."""
+    time_ms(kernel)
+    time_ms(library)
+    got = {"kernel": [], "library": []}
+    for r in range(rounds):
+        for side in (("kernel", "library") if r % 2 == 0
+                     else ("library", "kernel")):
+            got[side].append(time_ms(kernel if side == "kernel"
+                                     else library))
+    out = {}
+    for side, t in got.items():
+        med = float(np.median(t))
+        out[side] = {"ms": t, "median_ms": med,
+                     "spread": (max(t) - min(t)) / med}
+    return out
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """Device time per launch of a call that launches one kernel: the
+    profiler's self device time over ``reps`` calls, divided by the launches
+    it recorded (the queue's gaps between launches are not in it). Raises
+    unless the calls ran one kernel, at most once per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    if len(rows) != 1 or not 0 < rows[0].count <= reps:
+        raise AssertionError(f"{reps} calls ran "
+                             f"{[(e.key[:60], e.count) for e in rows]}")
+    return rows[0].self_device_time_total / rows[0].count / 1e3
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host cost of one call: the host clock over ``calls`` calls issued
+    without a synchronize, divided by ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e3
+
+
 def wall(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -225,8 +292,9 @@ def wall(fn):
 
 def device_breakdown(fn, top: int = 8) -> dict:
     """One traced run under ``torch.profiler``: the device time of each
-    kernel name, summed, and the device's busy share of the traced wall
-    time (its idle share is the rest). Kernels overlap nothing here (one
+    kernel name, summed, the count of device operations (kernels, copies
+    and fills) and the device's busy share of the traced wall time (its
+    idle share is the rest). Kernels overlap nothing here (one
     stream), so the busy time is the sum over kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -244,6 +312,7 @@ def device_breakdown(fn, top: int = 8) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     return {"traced_wall_ms": secs * 1e3, "device_busy_ms": busy_ms,
+            "device_ops": sum(r[2] for r in rows),
             "device_idle_share": max(0.0, 1.0 - busy_ms / (secs * 1e3)),
             "top_kernels": [{"name": k[:90], "ms": ms, "count": c}
                             for k, ms, c in rows[:top]]}
@@ -268,16 +337,19 @@ def plain_kernels():
 
 @contextlib.contextmanager
 def plain_int8():
-    """Run the K/V cache with the plain int8 quantize/dequantize in place of
-    the kernels (the model reaches them through ``kernels.ops``, which looks
-    the wrappers up at each call)."""
-    saved = (quantize.quantize_int8, quantize.dequantize_int8)
+    """Run the K/V cache with the plain int8 quantize, fused write and
+    dequantize in place of the kernels (the model reaches them through
+    ``kernels.ops``, which looks the wrappers up at each call)."""
+    saved = (quantize.quantize_int8, quantize.quantize_int8_into,
+             quantize.dequantize_int8)
     quantize.quantize_int8 = ref.quantize_int8_ref
+    quantize.quantize_int8_into = ref.quantize_int8_into_ref
     quantize.dequantize_int8 = ref.dequantize_int8_ref
     try:
         yield
     finally:
-        quantize.quantize_int8, quantize.dequantize_int8 = saved
+        (quantize.quantize_int8, quantize.quantize_int8_into,
+         quantize.dequantize_int8) = saved
 
 
 @contextlib.contextmanager
@@ -412,8 +484,15 @@ def kernel_phase(dev, slab_n: int, slab_shape: tuple, wire_shape: tuple):
     }
     rows = {}
     for name, (kern, plain, lib, nbytes, nops) in work.items():
-        t_k, t_p = time_ms(kern), time_ms(plain)
-        t_l = time_ms(lib) if lib is not None else None
+        turns = None
+        if name in ("compress_bf16", "combine2"):
+            turns = in_turns(kern, lib)
+            t_k = turns["kernel"]["median_ms"]
+            t_l = turns["library"]["median_ms"]
+        else:
+            t_k = time_ms(kern)
+            t_l = time_ms(lib) if lib is not None else None
+        t_p = time_ms(plain)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_OPS_PER_S * 1e3
         src, replaces = KERNEL_FILES[name]
@@ -422,13 +501,27 @@ def kernel_phase(dev, slab_n: int, slab_shape: tuple, wire_shape: tuple):
                       "max_abs_err": errs[name], "ms": t_k,
                       "plain_ms": t_p, "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                      "library_ms": t_l,
+                      "library_ms": t_l, "device_ms": device_ms(kern),
+                      "host_ms": host_ms(kern),
+                      "library_device_ms": device_ms(lib)
+                      if lib is not None else None,
                       "shape": list(slab_shape if name.startswith("combine")
                                     else wire_shape)}
         log(f"  {name:16s} {rows[name]['shape']}: kernel {t_k:.4f} ms, "
             f"plain {t_p:.4f} ms, bound {rows[name]['bound_ms']:.4f} ms "
             f"({rows[name]['bound_by']})"
-            + (f", library {t_l:.4f} ms" if t_l is not None else ""))
+            + (f", library {t_l:.4f} ms" if t_l is not None else "")
+            + f"; device {rows[name]['device_ms']:.4f} ms a launch, host "
+            f"{rows[name]['host_ms']:.4f} ms a call"
+            + (f" (library device {rows[name]['library_device_ms']:.4f} ms)"
+               if lib is not None else ""))
+        if turns is not None:
+            rows[name]["in_turns"] = turns
+            log(f"    in turns (kernel, library, library, kernel, ...): "
+                + "; ".join(f"{side} {v['ms']} ms, median "
+                            f"{v['median_ms']:.4f}, spread "
+                            f"{100 * v['spread']:.1f} %"
+                            for side, v in turns.items()))
     del a, b, c, w, wh
     return rows
 
@@ -678,9 +771,50 @@ def check_int8(x: torch.Tensor, errs: dict, what: str) -> int:
     return checks + 1
 
 
-def int8_phase(dev, token_rows: int, ring_rows: int, width: int) -> dict:
+def kv_write_inputs(gen, batch: int, kv: int, width: int, slots: int,
+                    dtype, dev):
+    """One decode step's K and V, (batch, 1, kv, width) each, from
+    ``int8_rows`` (the adversarial rows land in V), and int8 rings of
+    ``slots`` with f32 scales that already hold earlier tokens."""
+    x = int8_rows(gen, 2 * batch * kv - 4, width, dev).to(dtype)
+    k, v = (t.reshape(batch, 1, kv, width) for t in x.split(batch * kv))
+    shape = (batch, slots, kv, width)
+    rings = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
+              for _ in range(2)]
+    return k, v, (*rings, *scales)
+
+
+def check_kv_write(gen, batch, kv, width, slots, errs, dev) -> int:
+    """The fused K/V write against its plain version, bitwise on both rings
+    and both scale arrays (so every other slot keeps its bytes), at slots
+    0, the middle and the last, f32 and bf16 sources."""
+    checks = 0
+    for dt in (torch.float32, torch.bfloat16):
+        k, v, bufs = kv_write_inputs(gen, batch, kv, width, slots, dt, dev)
+        for slot in (0, slots // 2, slots - 1):
+            got = [t.clone() for t in bufs]
+            want = [t.clone() for t in bufs]
+            quantize.quantize_int8_into(k, v, *got, slot)
+            ref.quantize_int8_into_ref(k, v, *want, slot)
+            for g, w, what in zip(got, want, ("K ring", "V ring",
+                                              "K scales", "V scales")):
+                check_bitwise(g, w, f"quantize_int8_into {what} {dt} "
+                              f"{list(g.shape)} slot {slot}")
+                errs["quantize_int8_into"] = max(
+                    errs["quantize_int8_into"],
+                    max_abs_err(g[:, slot].float(), w[:, slot].float()))
+                checks += 1
+            del got, want
+    return checks
+
+
+def int8_phase(dev, token_rows: int, ring_rows: int, width: int,
+               kv_heads: int, slots: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4)
-    errs = {"quantize_int8": 0.0, "dequantize_int8": 0.0}
+    errs = {"quantize_int8": 0.0, "quantize_int8_into": 0.0,
+            "dequantize_int8": 0.0}
     checks = 0
     for w in (12, 64, 128, 256):
         for dt in (torch.float32, torch.bfloat16):
@@ -705,8 +839,14 @@ def int8_phase(dev, token_rows: int, ring_rows: int, width: int) -> dict:
                                   max_abs_err(got, want))
     checks += 3
     del got, want
+    # the fused write at the decode path's shape: one token's K and V into
+    # a layer's rings
+    batch = token_rows // kv_heads
+    checks += check_kv_write(gen, batch, kv_heads, width, slots, errs, dev)
     torch.cuda.synchronize()
     log(f"  int8: {checks} bitwise checks against the plain versions passed")
+    k, v, bufs = kv_write_inputs(gen, batch, kv_heads, width, slots,
+                                 torch.bfloat16, dev)
     nt, nr = xt.numel(), q.numel()
     # name: (kernel, plain, bytes, ops, shape); ops: |x|, max, divide,
     # round per element (quantize), one product per element (dequantize)
@@ -715,6 +855,11 @@ def int8_phase(dev, token_rows: int, ring_rows: int, width: int) -> dict:
                           lambda: ref.quantize_int8_ref(xt),
                           2 * nt + nt + 4 * token_rows, 4 * nt,
                           list(xt.shape)),
+        "quantize_int8_into": (
+            lambda: quantize.quantize_int8_into(k, v, *bufs, slots // 2),
+            lambda: ref.quantize_int8_into_ref(k, v, *bufs, slots // 2),
+            2 * (2 * nt + nt + 4 * token_rows), 2 * 4 * nt,
+            [list(k.shape), list(bufs[0].shape)]),
         "dequantize_int8": (
             lambda: quantize.dequantize_int8(q, s, torch.bfloat16),
             lambda: ref.dequantize_int8_ref(q, s, torch.bfloat16),
@@ -722,7 +867,11 @@ def int8_phase(dev, token_rows: int, ring_rows: int, width: int) -> dict:
     }
     rows = {}
     for name, (kern, plain, nbytes, nops, shape) in work.items():
-        t_k, t_p = time_ms(kern), time_ms(plain)
+        t_events, t_p = time_ms(kern), time_ms(plain)
+        t_dev, t_host = device_ms(kern), host_ms(kern)
+        # a token's rows: the host sets the pace of back-to-back calls, so
+        # the card's time is the device time per launch
+        t_k = t_events if name == "dequantize_int8" else t_dev
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_OPS_PER_S * 1e3
         src, replaces = KERNEL_FILES[name]
@@ -732,16 +881,20 @@ def int8_phase(dev, token_rows: int, ring_rows: int, width: int) -> dict:
                       "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops
                       else "operations",
-                      "library_ms": None, "shape": shape}
-        log(f"  {name:16s} {shape}: kernel {t_k:.4f} ms, plain {t_p:.4f} "
-            f"ms, bound {rows[name]['bound_ms']:.4f} ms "
-            f"({rows[name]['bound_by']}, {nbytes} bytes)")
+                      "library_ms": None, "device_ms": t_dev,
+                      "host_ms": t_host, "events_ms": t_events,
+                      "shape": shape}
+        log(f"  {name:18s} {shape}: kernel {t_k:.4f} ms (device {t_dev:.4f}"
+            f" ms a launch, host {t_host:.4f} ms a call, back to back "
+            f"{t_events:.4f} ms), plain {t_p:.4f} ms, bound "
+            f"{rows[name]['bound_ms']:.7f} ms ({rows[name]['bound_by']}, "
+            f"{nbytes} bytes)")
     # no single PyTorch call dequantizes; the nearest is three calls
     t3 = time_ms(lambda: q.float().mul_(s).to(torch.bfloat16))
     log(f"  dequantize_int8 three-call q.float().mul_(s).to(bf16): "
         f"{t3:.4f} ms")
     rows["dequantize_int8"]["three_call_ms"] = t3
-    del q, s, xt
+    del q, s, xt, k, v, bufs
     return rows
 
 
@@ -1071,12 +1224,13 @@ def decode_phase(dev) -> dict:
     torch.cuda.synchronize()
     launches = counters()
     peak = torch.cuda.max_memory_allocated()
-    want = 2 * L * steps
-    if (launches["quantize_int8"], launches["dequantize_int8"]) != \
-            (want, want):
-        raise AssertionError(f"decode launches {launches}: want {want} of "
-                             "each int8 kernel (K and V, every layer, every "
-                             "step)")
+    want = (L * steps, 0, 2 * L * steps)
+    if (launches["quantize_int8_into"], launches["quantize_int8"],
+            launches["dequantize_int8"]) != want:
+        raise AssertionError(f"decode launches {launches}: want {want[0]} "
+                             "fused K/V writes (every layer, every step), "
+                             f"no separate quantize and {want[2]} "
+                             "dequantizes (K and V)")
     logits = run.logits
     if logits.shape != (steps, B, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
@@ -1109,7 +1263,8 @@ def decode_phase(dev) -> dict:
     step(params, inputs, caches)
     res["trace"] = trace = device_breakdown(
         lambda: step(params, inputs, caches), top=10)
-    log(f"  decode step traced: {json.dumps(trace)}")
+    log(f"  decode step traced: {trace['device_ops']} device operations "
+        f"({trace['device_ops'] / L:.2f} per layer): {json.dumps(trace)}")
     del caches, params
     torch.cuda.empty_cache()
     res["reduced_vs_cpu"] = reduced_check(dev)
@@ -1206,10 +1361,11 @@ def main() -> int:
     token_rows = DECODE["batch"] * mcfg.n_kv_heads
     ring_rows = token_rows * DECODE["cache_len"]
     log("phase 4: the int8 K/V kernels")
-    rows.update(int8_phase(dev, token_rows, ring_rows, mcfg.hdim))
+    rows.update(int8_phase(dev, token_rows, ring_rows, mcfg.hdim,
+                           mcfg.n_kv_heads, DECODE["cache_len"]))
     log("phase 5: the serving main path, MiniCPM-2B at full width")
     decode = decode_phase(dev)
-    for name in ("quantize_int8", "dequantize_int8"):
+    for name in ("quantize_int8", "quantize_int8_into", "dequantize_int8"):
         main_launches[name] = decode["launches"][name]
     log("decode path: " + json.dumps(decode))
     tcfg = get_config(TRAIN["arch"])
@@ -1223,7 +1379,7 @@ def main() -> int:
         training["launches"]["flash_attention"]
     log("training path: " + json.dumps(training))
     for name in ("combine3", "compress_bf16", "decompress_bf16",
-                 "quantize_int8", "dequantize_int8", "flash_attention"):
+                 "quantize_int8_into", "dequantize_int8", "flash_attention"):
         if main_launches[name] == 0:
             raise AssertionError(f"{name} was not launched on its main path")
     for name, row in rows.items():

@@ -22,7 +22,8 @@ import torch
 
 __all__ = ["OPS", "INV127", "combine2_ref", "combine3_ref",
            "compress_bf16_ref", "decompress_bf16_ref", "quantize_int8_ref",
-           "dequantize_int8_ref", "flash_attention_ref"]
+           "quantize_int8_into_ref", "dequantize_int8_ref",
+           "flash_attention_ref"]
 
 # f32(1/127) (bits 0x3c010204), exact as a Python float
 INV127 = 0.007874015718698502
@@ -60,6 +61,19 @@ def quantize_int8_ref(x: torch.Tensor):
     # computed as a product with its reciprocal
     q = torch.round(x32 / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
+
+
+def quantize_int8_into_ref(k, v, k_ring, v_ring, k_scale, v_scale,
+                           slot: int) -> None:
+    """The fused K/V cache write: :func:`quantize_int8_ref` of ``k``'s and
+    ``v``'s (B, T, KV, W) rows, then the slice assignments into the rings
+    (B, S, KV, W) and scales (B, S, KV, 1) at ``slot``, in place (the
+    reference's ``_cache_write``, with its ``dynamic_update_slice``)."""
+    end = slot + k.shape[1]
+    for x, ring, scale in ((k, k_ring, k_scale), (v, v_ring, v_scale)):
+        q, s = quantize_int8_ref(x.reshape(-1, x.shape[-1]))
+        ring[:, slot:end] = q.view(x.shape)
+        scale[:, slot:end] = s.view(*x.shape[:-1], 1)
 
 
 def dequantize_int8_ref(q: torch.Tensor, scale: torch.Tensor,

@@ -31,7 +31,7 @@ from repro_torch.kernels import ops
 
 __all__ = ["Params", "AttnConfig", "FLASH_THRESHOLD", "INIT_CHUNK",
            "dense_init", "rmsnorm_init", "rmsnorm", "act_fn", "rope_freqs", "apply_rope",
-           "attention", "quantize_kv_rows", "attention_decode", "mlp"]
+           "attention", "attention_decode", "mlp"]
 
 Params = dict
 
@@ -246,26 +246,19 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor,
     return out @ p["wo"].to(x.dtype)
 
 
-def quantize_kv_rows(x: torch.Tensor):
-    """Symmetric int8 per-(token, head) row quantization of K/V entries:
-    ``(q int8, scale (..., 1) f32)``. The int8 quantize kernel on a CUDA
-    tensor."""
-    return ops.kv_quantize(x)
-
-
-def _cache_write(cache_arr: torch.Tensor, scale_arr, val: torch.Tensor,
-                 slot: int):
-    """Write ``val`` (B, T, KV, dh) into the ring at ``slot``, IN PLACE (the
-    reference donates its caches, so it may too); int8 rings also take the
-    new rows' scales. Returns the (same) arrays."""
-    end = slot + val.shape[1]
-    if cache_arr.dtype == torch.int8:
-        q, s = quantize_kv_rows(val)
-        cache_arr[:, slot:end] = q
-        scale_arr[:, slot:end] = s
-    else:
-        cache_arr[:, slot:end] = val.to(cache_arr.dtype)
-    return cache_arr, scale_arr
+def _cache_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                 slot: int) -> None:
+    """Write one step's ``k`` and ``v`` (B, T, KV, dh) into the rings at
+    ``slot``, IN PLACE (the reference donates its caches, so it may too):
+    an int8 ring takes the codes and the rows' scales from one fused
+    quantize launch on the card, a bf16 ring the cast values."""
+    if cache["k"].dtype == torch.int8:
+        ops.kv_quantize_write(k, v, cache["k"], cache["v"], cache["ks"],
+                              cache["vs"], slot)
+        return
+    end = slot + k.shape[1]
+    cache["k"][:, slot:end] = k.to(cache["k"].dtype)
+    cache["v"][:, slot:end] = v.to(cache["v"].dtype)
 
 
 def _cache_read(cache_arr: torch.Tensor, scale_arr, dtype) -> torch.Tensor:
@@ -290,14 +283,10 @@ def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor,
     positions = torch.full((B, 1), cache_pos, dtype=torch.int32,
                            device=x.device)
     q, k, v = _qkv(p, cfg, x, positions)
-    slot = cache_pos % S
-    ck, ks = _cache_write(cache["k"], cache.get("ks"), k, slot)
-    cv, vs = _cache_write(cache["v"], cache.get("vs"), v, slot)
-    new_cache = {"k": ck, "v": cv}
-    if ks is not None:
-        new_cache["ks"], new_cache["vs"] = ks, vs
-    cache_k = _cache_read(ck, ks, q.dtype)
-    cache_v = _cache_read(cv, vs, q.dtype)
+    _cache_write(cache, k, v, cache_pos % S)
+    new_cache = {n: cache[n] for n in ("k", "v", "ks", "vs") if n in cache}
+    cache_k = _cache_read(cache["k"], cache.get("ks"), q.dtype)
+    cache_v = _cache_read(cache["v"], cache.get("vs"), q.dtype)
     # ring cache: slot s currently holds absolute position
     # pos - ((pos - s) mod S) (negative -> not yet written)
     ki = cache_pos - torch.remainder(

@@ -69,7 +69,8 @@ def _operand(rng, n, dt, op, device, which):
 
 def _assert_bitwise(got, want):
     assert got.shape == want.shape and got.dtype == want.dtype
-    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    ints = {1: torch.int8, 2: torch.int16,
+            4: torch.int32}[got.element_size()]
     assert torch.equal(got.contiguous().view(ints), want.contiguous().view(ints))
 
 
@@ -113,6 +114,22 @@ def test_cast_kernels_match_plain(n, cuda):
     for src in (h, every):
         _assert_bitwise(quantize.decompress_bf16(src),
                         ref.decompress_bf16_ref(src))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3, 7, 4097, (1 << 20) + 5])
+def test_compress_bf16_ragged_and_misaligned(n, offset, cuda):
+    """The streaming cast at ragged lengths and at views 1 to 3 elements
+    past a 16-byte boundary (the one-element-per-thread path), special
+    values at the head: bit for bit ``.to(torch.bfloat16)``."""
+    x = _cast_inputs(np.random.default_rng(n + offset), n + offset).to(cuda)
+    x = x[offset:]
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = quantize.compress_bf16.launches
+    h = quantize.compress_bf16(x)
+    torch.cuda.synchronize()
+    assert quantize.compress_bf16.launches == before + 1
+    _assert_bitwise(h, x.to(torch.bfloat16))
 
 
 def _int8_rows(rng, rows, width):
@@ -170,6 +187,63 @@ def test_int8_nan_rows_match_plain(cuda):
     _assert_bitwise(s[ok], sr[ok])
 
 
+def _kv_step(rng, B, KV, W, S, dt, device):
+    """One decode step's K and V rows, (B, 1, KV, W), and int8 rings of S
+    slots (with scales) that already hold earlier tokens."""
+    x = _int8_rows(rng, 2 * B * KV - 4, W).to(DTYPES[dt])
+    k, v = (t.reshape(B, 1, KV, W).to(device) for t in x.split(B * KV))
+    rings = [torch.from_numpy(rng.integers(-127, 128, (B, S, KV, W)).astype(
+        np.int8)).to(device) for _ in range(2)]
+    scales = [torch.from_numpy(rng.uniform(1e-3, 1, (B, S, KV, 1)).astype(
+        np.float32)).to(device) for _ in range(2)]
+    return k, v, rings, scales
+
+
+@pytest.mark.parametrize("slot", ["first", "middle", "last"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [12, 16, 64, 128, 256])
+def test_fused_kv_write_matches_plain(width, dt, slot, cuda):
+    """The fused K/V write against its plain version (quantize, then the
+    slice assignments), bit for bit on both rings and both scale arrays:
+    the new slot holds the codes and scales, every other slot its old
+    bytes, and the call is one launch."""
+    B, KV, S = 3, 5, 9
+    at = {"first": 0, "middle": S // 2, "last": S - 1}[slot]
+    k, v, rings, scales = _kv_step(np.random.default_rng(width), B, KV,
+                                   width, S, dt, cuda)
+    got = [t.clone() for t in (*rings, *scales)]
+    want = [t.clone() for t in (*rings, *scales)]
+    before = quantize.quantize_int8_into.launches
+    quantize.quantize_int8_into(k, v, *got, at)
+    torch.cuda.synchronize()
+    assert quantize.quantize_int8_into.launches == before + 1
+    ref.quantize_int8_into_ref(k, v, *want, at)
+    for g, w, old in zip(got, want, (*rings, *scales)):
+        _assert_bitwise(g, w)
+        keep = torch.arange(S, device=cuda) != at
+        _assert_bitwise(g[:, keep], old[:, keep])
+
+
+def test_fused_kv_write_at_the_decode_shape(cuda):
+    """MiniCPM-2B's decode rows, batch 16 x 36 K/V heads of head_dim 64 in
+    bf16, into rings of 64 slots, from strided sources (the K/V heads of a
+    wider projection): bitwise the plain version's."""
+    B, KV, W, S = 16, 36, 64, 64
+    rng = np.random.default_rng(5)
+    k, v, rings, scales = _kv_step(rng, B, KV, W, S, "bf16", cuda)
+    wide = torch.zeros((B, 1, 2 * KV, W), dtype=k.dtype, device=cuda)
+    wide[:, :, ::2], wide[:, :, 1::2] = k, v
+    ks, vs = wide[:, :, ::2], wide[:, :, 1::2]
+    assert not ks.is_contiguous()
+    for at in (0, 37, S - 1):
+        got = [t.clone() for t in (*rings, *scales)]
+        want = [t.clone() for t in (*rings, *scales)]
+        quantize.quantize_int8_into(ks, vs, *got, at)
+        ref.quantize_int8_into_ref(k, v, *want, at)
+        for g, w in zip(got, want):
+            _assert_bitwise(g, w)
+
+
 def test_launch_counters_count_only_launches(cuda):
     before = block_combine.combine2.launches
     empty = torch.empty(0, device=cuda)
@@ -182,21 +256,27 @@ def test_launch_counters_count_only_launches(cuda):
 
 def test_int8_decode_runs_the_kernels_and_matches_plain(cuda, monkeypatch):
     """Reduced MiniCPM-2B with the int8 cache through ``serve_loop`` on the
-    card, the ring wrapping (6 steps, 4 slots): every step quantizes and
-    dequantizes K and V once per layer, and tokens and logits are bitwise
-    those of the same run with the plain versions."""
+    card, the ring wrapping (6 steps, 4 slots): every step writes K and V
+    with one fused quantize launch per layer and dequantizes each once, and
+    tokens and logits are bitwise those of the same run with the plain
+    versions."""
     from repro_torch.configs.base import decode_config, get_config
     from repro_torch.launch import serve
     cfg = dataclasses.replace(
         decode_config(get_config("minicpm_2b", reduced=True)), kv_quant=True)
     args = argparse.Namespace(arch="minicpm_2b", reduced=True, batch=3,
                               steps=6, cache_len=4, seed=0, device="cuda")
-    before = (quantize.quantize_int8.launches,
+    before = (quantize.quantize_int8_into.launches,
+              quantize.quantize_int8.launches,
               quantize.dequantize_int8.launches)
     run = serve.serve_loop(args, cfg, keep_logits=True)
-    want = 2 * cfg.n_layers * args.steps
-    assert (quantize.quantize_int8.launches - before[0],
-            quantize.dequantize_int8.launches - before[1]) == (want, want)
+    steps = cfg.n_layers * args.steps
+    assert (quantize.quantize_int8_into.launches - before[0],
+            quantize.quantize_int8.launches - before[1],
+            quantize.dequantize_int8.launches - before[2]) == \
+        (steps, 0, 2 * steps)
+    monkeypatch.setattr(quantize, "quantize_int8_into",
+                        ref.quantize_int8_into_ref)
     monkeypatch.setattr(quantize, "quantize_int8", ref.quantize_int8_ref)
     monkeypatch.setattr(quantize, "dequantize_int8", ref.dequantize_int8_ref)
     plain = serve.serve_loop(args, cfg, keep_logits=True)

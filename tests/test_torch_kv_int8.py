@@ -7,7 +7,10 @@ which are held here bit for bit (codes and scales) against:
   fixed width of 128;
 * the model's own ``quantize_kv_rows`` and ``_cache_read`` arithmetic at the
   K/V caches' widths, 64 (MiniCPM-2B's head_dim) and 12 (its reduced
-  config's), as the reference's jitted decode step computes them.
+  config's), as the reference's jitted decode step computes them;
+* the decode step's fused K/V cache write (``ops.kv_quantize_write``, whose
+  plain version runs here) against the reference's jitted ``_cache_write``
+  applied to K and to V, rings, scales and untouched slots included.
 
 Under ``jit`` XLA folds the reference's ``/ 127.0`` into a product with
 f32(1/127), and so does the Pallas kernel; an eager ``jnp`` call divides.
@@ -155,3 +158,74 @@ def test_wrappers_reject_what_the_int8_kernels_do_not_take():
     # an empty block is fine and launches nothing
     q0, s0 = quantize.quantize_int8(torch.zeros(0, 64))
     assert q0.shape == (0, 64) and s0.shape == (0, 1)
+
+
+def _rings(rng, B, S, KV, W):
+    """int8 rings and f32 scales already holding earlier tokens."""
+    q = rng.integers(-127, 128, size=(B, S, KV, W)).astype(np.int8)
+    sc = rng.uniform(1e-3, 1.0, size=(B, S, KV, 1)).astype(np.float32)
+    return q, sc
+
+
+@pytest.mark.parametrize("slot", ["first", "last"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [12, 64])
+def test_fused_write_matches_the_references_cache_write(width, dt, slot):
+    """One decode step's K and V rows, (B, 1, KV, W), into int8 rings of S
+    slots at slot 0 or S - 1, against ``jax.jit(_cache_write)`` on K and on
+    V; every other slot keeps its bytes."""
+    B, S, KV = 3, 7, 4
+    rng = np.random.default_rng(width + (dt == "bf16"))
+    at = 0 if slot == "first" else S - 1
+    x32 = _rows(rng, 2 * B * KV - 4, width)
+    kj, kt = _pair(x32[: B * KV].reshape(B, 1, KV, width), dt)
+    vj, vt = _pair(x32[B * KV:].reshape(B, 1, KV, width), dt)
+    rings = [_rings(rng, B, S, KV, width) for _ in range(2)]
+    tk, tv = (torch.from_numpy(q.copy()) for q, _ in rings)
+    tks, tvs = (torch.from_numpy(sc.copy()) for _, sc in rings)
+    ops.kv_quantize_write(kt, vt, tk, tv, tks, tvs, at)
+    write = jax.jit(ref_layers._cache_write)
+    for (q0, s0), val, got_q, got_s, what in (
+            (rings[0], kj, tk, tks, "K"), (rings[1], vj, tv, tvs, "V")):
+        want_q, want_s = write(jnp.asarray(q0), jnp.asarray(s0), val, at)
+        _eq(got_q, want_q, f"{what} ring")
+        _eq(got_s, want_s, f"{what} scales")
+        keep = np.arange(S) != at
+        assert np.array_equal(got_q.numpy()[:, keep], q0[:, keep])
+        assert np.array_equal(got_s.numpy()[:, keep], s0[:, keep])
+
+
+def test_fused_write_refuses_what_the_kernel_does_not_take():
+    k = torch.zeros(2, 1, 3, 8)
+    ring = torch.zeros(2, 5, 3, 8, dtype=torch.int8)
+    scale = torch.zeros(2, 5, 3, 1)
+    before = quantize.quantize_int8_into.launches
+    for slot in (5, -1):
+        with pytest.raises(ValueError, match="does not fit"):
+            ops.kv_quantize_write(k, k, ring, ring.clone(), scale,
+                                  scale.clone(), slot)
+    with pytest.raises(ValueError, match="does not fit"):   # slot + T > S
+        ops.kv_quantize_write(torch.zeros(2, 2, 3, 8), torch.zeros(2, 2, 3, 8),
+                              ring, ring.clone(), scale, scale.clone(), 4)
+    wide = torch.zeros(2, 1, 3, 257)
+    wring = torch.zeros(2, 5, 3, 257, dtype=torch.int8)
+    with pytest.raises(ValueError, match="at most 256"):
+        ops.kv_quantize_write(wide, wide, wring, wring.clone(), scale,
+                              scale.clone(), 0)
+    with pytest.raises(ValueError, match="one"):      # K and V differ
+        ops.kv_quantize_write(k, k.to(torch.bfloat16), ring, ring.clone(),
+                              scale, scale.clone(), 0)
+    with pytest.raises(TypeError):
+        ops.kv_quantize_write(k.double(), k.double(), ring, ring.clone(),
+                              scale, scale.clone(), 0)
+    with pytest.raises(ValueError, match="v_ring"):    # a bf16 ring
+        ops.kv_quantize_write(k, k, ring, ring.to(torch.bfloat16), scale,
+                              scale.clone(), 0)
+    with pytest.raises(ValueError, match="k_scale"):
+        ops.kv_quantize_write(k, k, ring, ring.clone(), scale[:, :4],
+                              scale.clone(), 0)
+    # the last slot fits; the CPU runs the plain version and counts nothing
+    ops.kv_quantize_write(k + 1, k - 1, ring, ring.clone(), scale,
+                          scale.clone(), 4)
+    assert (ring[:, 4] == 127).all() and (ring[:, :4] == 0).all()
+    assert quantize.quantize_int8_into.launches == before

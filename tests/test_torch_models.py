@@ -304,16 +304,18 @@ def test_attention_flash_path_matches(arch, dt):
 
 
 def _record_quantize(monkeypatch):
-    """Record ``x / scale`` of every K/V row the port quantizes, in order."""
+    """Record ``x / scale`` of every K/V row the port quantizes, in order
+    (K, then V, at each of the decode step's fused cache writes)."""
     ratios = []
-    real = ops.kv_quantize
+    real = ops.kv_quantize_write
 
-    def spy(x):
-        q, s = real(x)
-        ratios.append((x.to(torch.float32) / s).numpy())
-        return q, s
+    def spy(k, v, cache_k, cache_v, scale_k, scale_v, slot):
+        real(k, v, cache_k, cache_v, scale_k, scale_v, slot)
+        end = slot + k.shape[1]
+        for x, s in ((k, scale_k), (v, scale_v)):
+            ratios.append((x.to(torch.float32) / s[:, slot:end]).numpy())
 
-    monkeypatch.setattr(ops, "kv_quantize", spy)
+    monkeypatch.setattr(ops, "kv_quantize_write", spy)
     return ratios
 
 
