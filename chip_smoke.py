@@ -10,6 +10,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    cast and ``combine2`` timed in turns with their PyTorch calls
    (``.to(torch.bfloat16)``, ``torch.add``), and each kernel's device time
    per launch (profiler) and host cost per call (host clock, no sync);
+   ``combine2``'s device time in turns with ``torch.add``'s, and its host
+   cost split into the wrapper's parts;
 2. collectives at p = 8: every ``all_reduce`` method, the kernel-carried
    outputs bitwise equal to the same engine with the plain combines and
    casts, every method within tolerance of a float64 sum, and a
@@ -48,16 +50,27 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    (kernel, SDPA, kernel), with ptxas's report of the bf16 kernel;
 7. the training main path at full width: MiniCPM-2B's seeded weights drawn
    on the card (timed) and checked against the CPU's draw, then the port's
-   ``train_loop`` at seq 4096, batch 4, for ``TRAIN["steps"]`` steps, its
+   ``train_loop`` at seq 4096, batch 4, under full remat (``TRAIN_REMAT``;
+   the config's own ``"dots"`` does not fit), for ``TRAIN["steps"]`` steps, its
    batches on the card equal to the CPU's, every step's loss and grad norm
    finite and within tolerance of the same steps with the plain flash
    version, the flash launches counted (forward and recompute, every layer,
    every step), one step traced; and a reduced MiniCPM-2B at its own
    head_dim 12 and T = 1088: its weights drawn on the card within 2 ulp of
    the CPU's, and trained on the card within bf16 tolerance of the port on
-   the CPU.
+   the CPU;
+8. training with checkpoints and a restart: MiniCPM-2B at full width cut to
+   4 layers, seq 4096, batch 4, under its own ``"dots"`` remat: 8 steps in
+   one run, then with a checkpoint every 3 steps and a failure injected
+   after step 5 under ``run_with_restarts``: one restart, the restored
+   params and AdamW moments bitwise what was saved, every loss after the
+   resume within 2e-3 of the uninterrupted run's, the device memory at the
+   restart back at its level before the failed attempt, each save's and the
+   restore's seconds (under a directory of ``build/`` the phase removes);
+   then ``"dots"`` against ``"full"`` at all 40 layers and batch 2 in
+   turns: peak memory, median step, losses within ``TRAIN_TOL``.
 
-In phases 3, 5 and 7 the kernels' launch counters are zeroed just before the
+In phases 3, 5, 7 and 8 the kernels' launch counters are zeroed just before the
 main path and read just after, and must show that the kernels carried it.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -73,8 +86,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -84,6 +99,7 @@ os.environ["REPRO_TORCH_AUTOTUNE"] = "0"   # auto picks from the cost model
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.checkpoint import checkpointing  # noqa: E402
 from repro_torch.core import (CollectiveConfig, LocalTransport,  # noqa: E402
                               all_reduce, build_dual_tree, build_hierarchy,
                               cost_model, dptree, simulate_allreduce,
@@ -96,6 +112,8 @@ from repro_torch.kernels import _build, block_combine, quantize, ref  # noqa: E4
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import serve, step_fns, train  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
+from repro_torch.runtime import fault_tolerance  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, the f32 rate outside the
 # tensor cores (the combine and cast kernels use no tensor core) and the
@@ -141,6 +159,19 @@ DECODE = dict(arch="minicpm_2b", batch=16, cache_len=8192, steps=32, seed=0)
 # (seq 4096, global batch 256) to the batch one 80 GB card holds
 TRAIN = dict(arch="minicpm_2b", seq_len=4096, global_batch=4, accum=1,
              steps=3, lr=1e-4, seed=0, log_every=1)
+# phase 7's remat policy, set explicitly: MiniCPM-2B's own "dots" keeps
+# every layer's weight products, which do not fit beside full-width AdamW at
+# batch 4 on an 80 GB card (tools/torch_remat_memory.py, PERF.md section 4)
+TRAIN_REMAT = "full"
+# phase 8: training with checkpoints and a restart, MiniCPM-2B at full width
+# cut to 4 layers (one checkpoint of f32 params and AdamW moments is about
+# 6.3 GB) at phase 7's seq 4096 and batch 4, under the config's own "dots"
+CKPT = dict(layers=4, steps=8, ckpt_every=3, fail_at=5)
+# each loss after the resume within 2e-3 of the uninterrupted run's (the
+# bound of the reference's test_checkpoint_resume_matches_uninterrupted)
+RESUME_TOL = 2e-3
+# phase 8's "dots" against "full": all 40 layers, at the batch both fit
+DOTS = dict(global_batch=2, steps=3)
 FLASH_LENGTHS = (1025, 1536, 4096)
 # the reduced configs' head_dims, which the wrapper zero-pads to 64
 PADDED_DIMS, PADDED_LENGTHS = (12, 16), (1025, 1088)
@@ -226,20 +257,21 @@ def time_ms(fn, reps: int = 50) -> float:
     return float(np.median(runs))
 
 
-def in_turns(kernel, library, rounds: int = 4) -> dict:
-    """``time_ms`` of a kernel and of the PyTorch call computing the same
-    function, alternately (kernel, library, library, kernel, ...), so that
-    neither always runs first, after one untimed pass of each (the card's
-    clocks settle): each side's times, median and spread (the range over
-    the median)."""
-    time_ms(kernel)
-    time_ms(library)
+def in_turns(kernel, library, rounds: int = 4, timer=None) -> dict:
+    """``timer`` (``time_ms`` by default) of a kernel and of the PyTorch
+    call computing the same function, alternately (kernel, library,
+    library, kernel, ...), so that neither always runs first, after one
+    untimed pass of each (the card's clocks settle): each side's times,
+    median and spread (the range over the median)."""
+    timer = timer or time_ms
+    timer(kernel)
+    timer(library)
     got = {"kernel": [], "library": []}
     for r in range(rounds):
         for side in (("kernel", "library") if r % 2 == 0
                      else ("library", "kernel")):
-            got[side].append(time_ms(kernel if side == "kernel"
-                                     else library))
+            got[side].append(timer(kernel if side == "kernel"
+                                   else library))
     out = {}
     for side, t in got.items():
         med = float(np.median(t))
@@ -522,8 +554,91 @@ def kernel_phase(dev, slab_n: int, slab_shape: tuple, wire_shape: tuple):
                             f"{v['median_ms']:.4f}, spread "
                             f"{100 * v['spread']:.1f} %"
                             for side, v in turns.items()))
+        if name == "combine2":
+            dev_turns = in_turns(kern, lib, timer=device_ms)
+            rows[name]["device_in_turns"] = dev_turns
+            log(f"    device time per launch in turns: "
+                + "; ".join(f"{side} {v['ms']} ms, median "
+                            f"{v['median_ms']:.5f}, spread "
+                            f"{100 * v['spread']:.1f} %"
+                            for side, v in dev_turns.items()))
+    split = combine_host_split(a, b)
+    rows["combine2"]["host_split_ms"] = split
+    log("  combine2 host cost per call, split (host clock over 200 calls "
+        "without a sync, median of 3): " + ", ".join(
+            f"{k} {v:.5f}" for k, v in split.items()) + " ms")
     del a, b, c, w, wh
     return rows
+
+
+def combine_host_split(a, b, rounds: int = 3) -> dict:
+    """The host cost of one ``combine2`` call on ``a`` and ``b`` split into
+    its parts, each timed alone by ``host_ms``: the operand check (now and
+    as it was), the output's allocation, the current-stream lookup (and PyTorch's raw
+    stream call where it has one), the current-device query that now picks
+    the path, entering a device context, ``_build.load`` (its lock and dict
+    lookup), looking the ctypes function up on the library, and the ctypes
+    call itself with the launch inside the library; then the whole call as
+    the wrapper makes it now and as it made it before (load, device context
+    and function lookup on every call). Medians of ``rounds`` passes."""
+    dev, n = a.device, a.numel()
+    out = torch.empty_like(a)
+    lib = _build.load("block_combine", block_combine._SIGNATURES)
+    fn = block_combine._fn("bc_combine2")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pa, pb, po = a.data_ptr(), b.data_ptr(), out.data_ptr()
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def check_before(op, *xs):      # the parent's _check, as it was
+        if op not in block_combine._OP_CODE:
+            raise ValueError(op)
+        x0 = xs[0]
+        for x in xs[1:]:
+            if x.shape != x0.shape or x.dtype != x0.dtype or \
+                    x.device != x0.device:
+                raise ValueError("operands differ")
+        if x0.dtype not in block_combine._DTYPE_CODE:
+            raise TypeError(x0.dtype)
+        if x0.device.type not in ("cpu", "cuda"):
+            raise ValueError(x0.device)
+        if not all(x.is_contiguous() for x in xs):
+            raise ValueError("not contiguous")
+
+    def before():
+        check_before("add", a, b)
+        o = torch.empty_like(a)
+        f = _build.load("block_combine", block_combine._SIGNATURES)
+        with torch.cuda.device(dev):
+            st = torch.cuda.current_stream(dev).cuda_stream
+            rc = f.bc_combine2(0, 0, a.data_ptr(), b.data_ptr(),
+                               o.data_ptr(), n, st)
+        if rc:
+            raise RuntimeError(f"bc_combine2 failed: {rc}")
+        return o
+
+    parts = {
+        "check": lambda: block_combine._check("add", (a, b)),
+        "check_before": lambda: check_before("add", a, b),
+        "empty_like": lambda: torch.empty_like(a),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "current_device": torch.cuda.current_device,
+        "device_context": device_context,
+        "build_load": lambda: _build.load("block_combine",
+                                          block_combine._SIGNATURES),
+        "getattr_fn": lambda: lib.bc_combine2,
+        "ctypes_call": lambda: fn(0, 0, pa, pb, po, n, stream),
+        "wrapper_now": lambda: block_combine.combine2(a, b),
+        "wrapper_before": before,
+    }
+    got = {k: [] for k in parts}
+    for _ in range(rounds):
+        for k, f in parts.items():
+            got[k].append(host_ms(f))
+    return {k: float(np.median(v)) for k, v in got.items()}
 
 
 # ------------------------------------------------------------- collectives
@@ -1022,12 +1137,16 @@ def close_rel(got, want, tol: float, what: str) -> float:
 
 def train_phase(dev) -> dict:
     args = train_args(device=dev)
-    cfg = get_config(args.arch)
+    own = get_config(args.arch)
+    cfg = dataclasses.replace(own, remat_policy=TRAIN_REMAT)
     B, T, L, steps = args.global_batch, args.seq_len, cfg.n_layers, args.steps
     log(f"  {cfg.name}: {L} layers, d_model {cfg.d_model}, heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.hdim}, vocab "
-        f"{cfg.vocab_size}, remat {cfg.remat}; batch {B} x seq {T}, accum "
-        f"{args.accum}, {steps} steps, lr {args.lr}")
+        f"{cfg.vocab_size}, remat {cfg.remat}, remat_policy "
+        f"{cfg.remat_policy!r} (set explicitly; the config's own is "
+        f"{own.remat_policy!r}, whose saved products do not fit batch {B} "
+        f"on an 80 GB card); batch {B} x seq {T}, accum {args.accum}, "
+        f"{steps} steps, lr {args.lr}")
     # the batches on the card are the CPU's, bit for bit
     dcfg = DataConfig(cfg.vocab_size, T, B, args.seed)
     card_ds, host_ds = SyntheticLM(dcfg, dev), SyntheticLM(dcfg, "cpu")
@@ -1074,6 +1193,7 @@ def train_phase(dev) -> dict:
     attn_flops, _ = flash_work(B, T, cfg.n_heads, cfg.n_kv_heads, cfg.hdim)
     model_flops = 8 * n_all * B * T + L * attn_flops * (2 + 2.5)
     res = {"params": n_all, "init_seconds": init_s,
+           "remat_policy": cfg.remat_policy,
            "init_embed_ulp_vs_cpu": embed_ulp,
            "launches": launches, "max_memory_bytes": peak,
            "losses": met[:, 0].tolist(), "grad_norms": met[:, 3].tolist(),
@@ -1195,6 +1315,236 @@ def train_reduced_check(dev) -> dict:
         f"{err:.2e} (limit {REDUCED_TOL:.2e})")
     return {"card": a.tolist(), "cpu": b.tolist(), "max_rel_err": err,
             "head_dim": cfg.hdim, "init_ulp_vs_cpu": init_gap}
+
+
+# ------------------------------------- checkpoints, restarts and "dots"
+
+@contextlib.contextmanager
+def recording_checkpoints(keep_step: int):
+    """Record each checkpoint's host snapshot and write (seconds, bytes) and
+    each restore (seconds), keep the host copy written as step
+    ``keep_step``, and hold every restored tree bitwise against it on the
+    spot, before training updates it in place."""
+    rec = {"snapshots": [], "writes": [], "restores": [], "kept": None}
+    save, restore = checkpointing.save, checkpointing.restore
+    save_async = checkpointing.CheckpointManager.save_async
+
+    def save_async_rec(self, step, tree, extra=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_async(self, step, tree, extra)
+        rec["snapshots"].append({"step": step,
+                                 "seconds": time.perf_counter() - t0})
+
+    def save_rec(ckpt_dir, step, tree, extra=None, host=0):
+        t0 = time.perf_counter()
+        path = save(ckpt_dir, step, tree, extra, host)
+        rec["writes"].append({"step": step,
+                              "seconds": time.perf_counter() - t0,
+                              "bytes": os.path.getsize(os.path.join(
+                                  path, f"host_{host}.npz"))})
+        if step == keep_step:
+            rec["kept"] = tree
+        return path
+
+    def restore_rec(ckpt_dir, like, step=None, host=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, extra, got = restore(ckpt_dir, like, step, host)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if got != keep_step or rec["kept"] is None:
+            raise AssertionError(f"restored step {got}, want {keep_step}")
+        leaves, likes = tree_leaves(tree), tree_leaves(like)
+        want = tree_leaves(rec["kept"])
+        if not len(leaves) == len(likes) == len(want):
+            raise AssertionError("restored tree differs in its leaves")
+        for i, (a, b, w) in enumerate(zip(leaves, likes, want)):
+            if a.device != b.device or a.dtype != b.dtype:
+                raise AssertionError(f"restored leaf {i}: {a.dtype} on "
+                                     f"{a.device}, want {b.dtype} on "
+                                     f"{b.device}")
+            check_bitwise(a.cpu(), w, f"restored leaf {i}")
+        rec["restores"].append({"step": got, "seconds": secs,
+                                "leaves": len(leaves), "bitwise": True})
+        return tree, extra, got
+
+    checkpointing.save, checkpointing.restore = save_rec, restore_rec
+    checkpointing.CheckpointManager.save_async = save_async_rec
+    try:
+        yield rec
+    finally:
+        checkpointing.save, checkpointing.restore = save, restore
+        checkpointing.CheckpointManager.save_async = save_async
+
+
+def ckpt_phase(dev, phase7_peak: int) -> dict:
+    """Phase 8: MiniCPM-2B at full width cut to ``CKPT["layers"]`` layers,
+    at phase 7's seq and batch (so the flash kernel carries attention),
+    under the config's own ``"dots"`` remat: ``CKPT["steps"]`` steps in one
+    run, then the same steps with a checkpoint every ``ckpt_every`` and a
+    failure injected after step ``fail_at``, under ``run_with_restarts``.
+    Then ``"dots"`` against ``"full"`` at all 40 layers (``DOTS``)."""
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=CKPT["layers"])
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt_phase_", dir=build)
+    try:
+        res = ckpt_runs(dev, cfg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(root):
+        raise AssertionError(f"{root} was not removed")
+    res["dots_vs_full"] = dots_vs_full(dev, phase7_peak)
+    return res
+
+
+def ckpt_runs(dev, cfg, root: str) -> dict:
+    steps, every, fail_at = CKPT["steps"], CKPT["ckpt_every"], CKPT["fail_at"]
+    B, T, L = TRAIN["global_batch"], TRAIN["seq_len"], cfg.n_layers
+    log(f"  {cfg.name} cut to {L} layers (d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}, head_dim {cfg.hdim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), remat_policy {cfg.remat_policy!r}; batch {B} x "
+        f"seq {T}, {steps} steps, a checkpoint every {every}, a failure "
+        f"after step {fail_at}; under {root}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_counters()
+    run = train.train_loop(train_args(steps=steps, device=dev), cfg=cfg)
+    got = counters()["flash_attention"]
+    if got != flash_calls(cfg) * steps:
+        raise AssertionError(f"the uninterrupted run launched the flash "
+                             f"kernel {got} times, want "
+                             f"{flash_calls(cfg) * steps}")
+    ref_losses = [m[0] for m in run.metrics]
+    n_params = sum(t.numel() for t in _leaves(run.params))
+    state_bytes = 3 * 4 * n_params          # f32 params and two moments
+    del run
+    torch.cuda.synchronize()
+    free = shutil.disk_usage(root).free
+    need = 3 * state_bytes + (1 << 30)      # two kept, one staging
+    log(f"  uninterrupted: losses {ref_losses}; {n_params} params, "
+        f"{state_bytes / 1e9:.2f} GB a checkpoint, {free / 1e9:.1f} GB free "
+        f"on disk (need {need / 1e9:.1f})")
+    if free < need:
+        raise AssertionError(f"{free} bytes free under {root}, the "
+                             f"checkpoints need {need}")
+    keep = max(i + 1 for i in range(1, fail_at) if i % every == 0)
+    args = train_args(steps=steps, device=dev, ckpt_every=every,
+                      ckpt_dir=os.path.join(root, "ck"))
+    mem, attempts = {}, []
+
+    def loop(attempt):
+        torch.cuda.synchronize()
+        mem[attempt] = torch.cuda.memory_allocated()
+        attempts.append(attempt)
+        return train.train_loop(args, cfg=cfg,
+                                fail_at=fail_at if attempt == 0 else None)
+
+    zero_counters()
+    with recording_checkpoints(keep) as rec:
+        out, secs = wall(lambda: fault_tolerance.run_with_restarts(
+            loop, max_restarts=1))
+    launches = counters()["flash_attention"]
+    want = flash_calls(cfg) * (fail_at + 1 + steps - keep)
+    if launches != want:
+        raise AssertionError(f"the interrupted run launched the flash "
+                             f"kernel {launches} times, want {want}")
+    if out.restarts != 1 or attempts != [0, 1] or out.start != keep:
+        raise AssertionError(f"restarts {out.restarts}, attempts {attempts},"
+                             f" resumed from {out.start}: want 1, [0, 1], "
+                             f"{keep}")
+    if len(rec["restores"]) != 1:
+        raise AssertionError(f"{len(rec['restores'])} restores, want 1")
+    if mem[1] != mem[0]:
+        raise AssertionError(f"device memory {mem[1]} bytes at the restart "
+                             f"against {mem[0]} before the failed attempt")
+    resumed = np.array([m[0] for m in out.metrics])
+    gaps = np.abs(resumed - np.array(ref_losses[keep:]))
+    if not (np.isfinite(resumed).all() and gaps.max() <= RESUME_TOL):
+        raise AssertionError(f"losses after the resume {resumed.tolist()} "
+                             f"against {ref_losses[keep:]}: gap "
+                             f"{gaps.max():.3e} > {RESUME_TOL:.1e}")
+    rec.pop("kept")
+    res = {"layers": L, "params": n_params, "checkpoint_bytes": state_bytes,
+           "uninterrupted_losses": ref_losses, "restarts": out.restarts,
+           "resumed_from": out.start, "resumed_losses": resumed.tolist(),
+           "max_loss_gap": float(gaps.max()),
+           "memory_before_attempts": [mem[0], mem[1]],
+           "flash_launches": launches, "seconds": secs, **rec}
+    log(f"  interrupted: failed after step {fail_at}, restarts "
+        f"{out.restarts}, resumed from step {out.start}, restored state "
+        f"bitwise equal to the saved ({rec['restores'][0]['leaves']} "
+        f"leaves); losses after the resume {resumed.tolist()}, largest gap "
+        f"{gaps.max():.3e} to the uninterrupted run (limit {RESUME_TOL:.0e};"
+        f" zero: {bool(gaps.max() == 0)}); device memory at each attempt's "
+        f"start {mem[0]} / {mem[1]} bytes; flash launches {launches} (want "
+        f"{want}); {secs:.1f} s in all")
+    log("  checkpoint seconds: snapshots " + ", ".join(
+        f"step {r['step']} {r['seconds']:.3f}" for r in rec["snapshots"])
+        + "; writes " + ", ".join(
+        f"step {r['step']} {r['seconds']:.3f} ({r['bytes'] / 1e9:.2f} GB)"
+        for r in rec["writes"]) + f"; restore step {keep} "
+        f"{rec['restores'][0]['seconds']:.3f}")
+    return res
+
+
+def dots_vs_full(dev, phase7_peak: int) -> dict:
+    """``"dots"`` against ``"full"`` at full width and depth, at ``DOTS``'s
+    batch, in turns (full, dots, dots, full): peak memory, median step,
+    and the same losses and grad norms within ``TRAIN_TOL``; and the peak
+    ``"dots"`` would reach at phase 7's batch, from its activations' share
+    scaled by the batch."""
+    args = train_args(device=dev, **DOTS)
+    own = get_config(TRAIN["arch"])
+    got = {"full": [], "dots": []}
+    for policy in ("full", "dots", "dots", "full"):
+        cfg = dataclasses.replace(own, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        run = train.train_loop(args, cfg=cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        n = counters()["flash_attention"]
+        if n != flash_calls(cfg) * args.steps:
+            raise AssertionError(f"{policy}: {n} flash launches, want "
+                                 f"{flash_calls(cfg) * args.steps}")
+        met = np.array(run.metrics)
+        got[policy].append({"peak_bytes": peak,
+                            "step_seconds": run.step_seconds,
+                            "median_step_s": float(np.median(
+                                run.step_seconds[1:])),
+                            "losses": met[:, 0].tolist(),
+                            "grad_norms": met[:, 3].tolist()})
+        del run
+    full, dots = got["full"][0], got["dots"][0]
+    loss_err = close_rel(dots["losses"], full["losses"], TRAIN_TOL["loss"],
+                         "dots vs full losses")
+    gn_err = close_rel(dots["grad_norms"], full["grad_norms"],
+                       TRAIN_TOL["grad_norm"], "dots vs full grad norms")
+    scale = TRAIN["global_batch"] / args.global_batch
+    extra = (dots["peak_bytes"] - full["peak_bytes"]) * scale
+    card = torch.cuda.get_device_properties(0).total_memory
+    res = {"batch": args.global_batch, "runs": got, "loss_err": loss_err,
+           "grad_norm_err": gn_err,
+           "dots_peak_at_train_batch_predicted": phase7_peak + extra,
+           "card_bytes": card}
+    for policy, runs in got.items():
+        log(f"  {policy} at batch {args.global_batch}: peak "
+            f"{[round(r['peak_bytes'] / 1e9, 2) for r in runs]} GB, median "
+            f"step {[round(r['median_step_s'], 4) for r in runs]} s, losses "
+            f"{runs[0]['losses']}")
+    log(f"  dots vs full: loss error {loss_err:.2e}, grad norm error "
+        f"{gn_err:.2e} (limits {TRAIN_TOL['loss']:.1e} / "
+        f"{TRAIN_TOL['grad_norm']:.1e}); dots at batch "
+        f"{TRAIN['global_batch']} would peak at about "
+        f"{(phase7_peak + extra) / 1e9:.1f} GB (phase 7's full "
+        f"{phase7_peak / 1e9:.2f} GB plus the products it keeps, scaled "
+        f"from batch {args.global_batch}), of {card / 1e9:.1f} GB")
+    return res
 
 
 # ------------------------------------------------------- the decode path
@@ -1378,6 +1728,10 @@ def main() -> int:
     main_launches["flash_attention"] = \
         training["launches"]["flash_attention"]
     log("training path: " + json.dumps(training))
+    log("phase 8: training with checkpoints and a restart, and the dots "
+        "remat, MiniCPM-2B at full width")
+    ckpt = ckpt_phase(dev, training["max_memory_bytes"])
+    log("checkpoint path: " + json.dumps(ckpt))
     for name in ("combine3", "compress_bf16", "decompress_bf16",
                  "quantize_int8_into", "dequantize_int8", "flash_attention"):
         if main_launches[name] == 0:

@@ -30,6 +30,7 @@ OPS = ("add", "max", "min", "mul")
 _OP_CODE = {name: code for code, name in enumerate(OPS)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 DTYPES = tuple(_DTYPE_CODE)
+_DEVICES = ("cpu", "cuda")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -39,7 +40,21 @@ _SIGNATURES = {
 }
 
 
-def _check(op: str, *xs: torch.Tensor) -> None:
+def _check(op: str, xs: tuple) -> None:
+    """Raise unless ``xs`` are contiguous operands of one shape, dtype and
+    device that the kernel takes. The common path compares each operand's
+    shape, dtype and device once; the messages are built only on failure."""
+    x0 = xs[0]
+    shape, dtype, dev = x0.shape, x0.dtype, x0.device
+    ok = op in _OP_CODE and dtype in _DTYPE_CODE and dev.type in _DEVICES
+    for x in xs:
+        ok = ok and x.shape == shape and x.dtype == dtype and \
+            x.device == dev and x.is_contiguous()
+    if not ok:
+        _raise(op, xs)
+
+
+def _raise(op: str, xs: tuple) -> None:
     if op not in _OP_CODE:
         raise ValueError(f"unknown op {op!r}; want one of {OPS}")
     x0 = xs[0]
@@ -49,29 +64,48 @@ def _check(op: str, *xs: torch.Tensor) -> None:
                              f"device: {[(t.shape, t.dtype, t.device) for t in xs]}")
     if x0.dtype not in _DTYPE_CODE:
         raise TypeError(f"combine takes {DTYPES}, got {x0.dtype}")
-    if x0.device.type not in ("cpu", "cuda"):
+    if x0.device.type not in _DEVICES:
         raise ValueError(f"combine runs on cpu or cuda, got {x0.device}")
-    if not all(x.is_contiguous() for x in xs):
-        raise ValueError("combine operands must be contiguous")
+    raise ValueError("combine operands must be contiguous")
+
+
+_FNS: dict = {}                      # entry name -> its ctypes function
+
+
+def _fn(name: str):
+    """The library's entry ``name``; the first call loads (and builds) the
+    library and keeps every entry, so later calls take no lock."""
+    fn = _FNS.get(name)
+    if fn is None:
+        lib = _build.load("block_combine", _SIGNATURES)
+        _FNS.update({k: getattr(lib, k) for k in _SIGNATURES})
+        fn = _FNS[name]
+    return fn
 
 
 def _launch(fn: str, op: str, xs: tuple, out: torch.Tensor) -> None:
-    lib = _build.load("block_combine", _SIGNATURES)
-    x0 = xs[0]
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        rc = getattr(lib, fn)(_OP_CODE[op], _DTYPE_CODE[x0.dtype],
-                              *[x.data_ptr() for x in xs], out.data_ptr(),
-                              out.numel(), stream)
+    """Call ``fn`` on the current stream of ``out``'s card, switching the
+    current device only when ``out`` lies on another. The stream comes from
+    ``_cuda_getCurrentRawStream``, the call PyTorch's own generated kernels
+    make: ``torch.cuda.current_stream`` builds a ``Stream`` object first and
+    took 4.1 µs a call on the card against its 0.14 (PERF.md)."""
+    f, dev = _fn(fn), out.device
+    args = (_OP_CODE[op], _DTYPE_CODE[out.dtype],
+            *[x.data_ptr() for x in xs], out.data_ptr(), out.numel())
+    if dev.index == torch.cuda.current_device():
+        rc = f(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = f(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
-                           f"({lib.bc_error_string(rc).decode()})")
+                           f"({_fn('bc_error_string')(rc).decode()})")
 
 
 def combine2(a: torch.Tensor, b: torch.Tensor, *,
              op: str = "add") -> torch.Tensor:
     """``op(a, b)`` elementwise, one kernel launch on a CUDA tensor."""
-    _check(op, a, b)
+    _check(op, (a, b))
     if a.device.type == "cpu":
         return ref.combine2_ref(a, b, op=op)
     out = torch.empty_like(a)
@@ -85,7 +119,7 @@ def combine3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
              op: str = "add") -> torch.Tensor:
     """Fused ``op(op(a, b), c)`` elementwise, the intermediate rounded to the
     operand type; one kernel launch (one memory pass) on a CUDA tensor."""
-    _check(op, a, b, c)
+    _check(op, (a, b, c))
     if a.device.type == "cpu":
         return ref.combine3_ref(a, b, c, op=op)
     out = torch.empty_like(a)

@@ -14,10 +14,14 @@
 //
 // Bound: memory. combine3 reads three operands and writes one, 4*n*s bytes
 // for an element of s bytes, against two operations per element: far below
-// the card's operations-per-byte ratio. Design: one grid-stride loop with
-// 16-byte vector loads and stores when every pointer is 16-byte aligned,
-// and a scalar tail. There is no tiling or padding: the TPU's (512, 128)
-// VMEM tiles have no counterpart here.
+// the card's operations-per-byte ratio. Design: 16-byte vector loads and
+// stores when every pointer is 16-byte aligned, and a scalar tail in the
+// same launch. combine3 runs one grid-stride loop (at most 16 blocks per
+// SM). combine2 streams over a full grid, one 16-byte vector of each
+// operand per thread with evict-first hints (ld/st.global.cs), the design
+// of the bf16 wire cast: the capped grid-stride loop ran 1.3 % behind
+// torch.add's device time on this card (PERF.md). There is no tiling or
+// padding: the TPU's (512, 128) VMEM tiles have no counterpart here.
 //
 // Plain C interface for ctypes; each entry point returns cudaGetLastError().
 
@@ -96,20 +100,14 @@ union Pack {
   S s[V];
 };
 
-template <class T, int OP, int NARGS>
-__device__ __forceinline__ typename T::S comb(typename T::S a, typename T::S b,
-                                              typename T::S c) {
-  typename T::S r = apply<T, OP>(a, b);
-  if constexpr (NARGS == 3) r = apply<T, OP>(r, c);
-  return r;
-}
-
-template <class T, int OP, int NARGS>
+// combine3 in a grid-stride loop: vector k of a, b and c, then the tail.
+template <class T, int OP>
 __global__ void __launch_bounds__(kThreads)
-    combine_kernel(const typename T::S* __restrict__ a,
-                   const typename T::S* __restrict__ b,
-                   const typename T::S* __restrict__ c,
-                   typename T::S* __restrict__ out, int64_t n, int64_t nvec) {
+    combine3_kernel(const typename T::S* __restrict__ a,
+                    const typename T::S* __restrict__ b,
+                    const typename T::S* __restrict__ c,
+                    typename T::S* __restrict__ out, int64_t n,
+                    int64_t nvec) {
   using S = typename T::S;
   constexpr int V = 16 / sizeof(S);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -119,15 +117,54 @@ __global__ void __launch_bounds__(kThreads)
     Pack<S, V> pa, pb, pc, po;
     pa.u = reinterpret_cast<const uint4*>(a)[k];
     pb.u = reinterpret_cast<const uint4*>(b)[k];
-    if constexpr (NARGS == 3) pc.u = reinterpret_cast<const uint4*>(c)[k];
+    pc.u = reinterpret_cast<const uint4*>(c)[k];
 #pragma unroll
     for (int j = 0; j < V; ++j)
-      po.s[j] = comb<T, OP, NARGS>(pa.s[j], pb.s[j],
-                                   NARGS == 3 ? pc.s[j] : S());
+      po.s[j] = apply<T, OP>(apply<T, OP>(pa.s[j], pb.s[j]), pc.s[j]);
     reinterpret_cast<uint4*>(out)[k] = po.u;
   }
   for (int64_t k = nvec * V + tid; k < n; k += stride)
-    out[k] = comb<T, OP, NARGS>(a[k], b[k], NARGS == 3 ? c[k] : S());
+    out[k] = apply<T, OP>(apply<T, OP>(a[k], b[k]), c[k]);
+}
+
+// 16-byte loads and stores that evict first: each byte is touched once.
+__device__ __forceinline__ uint4 ld_cs(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.cs.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void st_cs(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// combine2 over a full grid: thread k < nvec takes vector k of a and b;
+// the next (n - nvec * V) threads take the scalar tail, one element each.
+template <class T, int OP>
+__global__ void __launch_bounds__(kThreads)
+    combine2_kernel(const typename T::S* __restrict__ a,
+                    const typename T::S* __restrict__ b,
+                    typename T::S* __restrict__ out, int64_t n,
+                    int64_t nvec) {
+  using S = typename T::S;
+  constexpr int V = 16 / sizeof(S);
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (k < nvec) {
+    Pack<S, V> pa, pb, po;
+    pa.u = ld_cs(reinterpret_cast<const uint4*>(a) + k);
+    pb.u = ld_cs(reinterpret_cast<const uint4*>(b) + k);
+#pragma unroll
+    for (int j = 0; j < V; ++j) po.s[j] = apply<T, OP>(pa.s[j], pb.s[j]);
+    st_cs(reinterpret_cast<uint4*>(out) + k, po.u);
+  } else {
+    const int64_t e = nvec * V + (k - nvec);
+    if (e < n) out[e] = apply<T, OP>(a[e], b[e]);
+  }
 }
 
 template <class T, int OP, int NARGS>
@@ -139,9 +176,17 @@ void launch(const void* a, const void* b, const void* c, void* out, int64_t n,
                    (NARGS == 2 || aligned(c, 16));
   const int64_t nvec = vec ? n / V : 0;
   const int64_t items = nvec + (n - nvec * V);
-  combine_kernel<T, OP, NARGS><<<grid_for(items), kThreads, 0, stream>>>(
-      static_cast<const S*>(a), static_cast<const S*>(b),
-      static_cast<const S*>(c), static_cast<S*>(out), n, nvec);
+  if constexpr (NARGS == 2) {
+    const int64_t blocks = (items + kThreads - 1) / kThreads;
+    combine2_kernel<T, OP><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             stream>>>(static_cast<const S*>(a),
+                                       static_cast<const S*>(b),
+                                       static_cast<S*>(out), n, nvec);
+  } else {
+    combine3_kernel<T, OP><<<grid_for(items), kThreads, 0, stream>>>(
+        static_cast<const S*>(a), static_cast<const S*>(b),
+        static_cast<const S*>(c), static_cast<S*>(out), n, nvec);
+  }
 }
 
 template <class T, int NARGS>

@@ -11,9 +11,13 @@ caches are nested dicts in the reference's layout, so
 :func:`forward`, :func:`chunked_ce_loss` and :func:`loss_fn` run under
 autograd for training: where ``cfg.remat`` is set each sublayer is
 recomputed in the backward (``torch.utils.checkpoint``, the reference's
-per-sublayer ``jax.checkpoint``), and so is each cross-entropy chunk. The
-reference's ``"dots"`` remat policy (keep the matmul outputs) changes only
-memory and time; the port recomputes whole sublayers under either policy.
+per-sublayer ``jax.checkpoint``), and so is each cross-entropy chunk, whole.
+Under ``remat_policy="dots"`` (the reference's
+``dots_with_no_batch_dims_saveable``) a sublayer's checkpoint keeps the
+outputs of its weight products, the 2-D ``aten.mm``/``aten.addmm`` that
+``x @ w`` folds the batch and time dimensions into, and recomputes the rest:
+the batched products (``bmm``), the flash attention, norms, RoPE and
+activations. The policies change memory and time, not a number.
 
 This slice builds the dense decoders (sublayer kinds ``attn`` and ``mlp``,
 token inputs). A config with another kind, M-RoPE, embeddings input or an
@@ -24,10 +28,12 @@ encoder is a valid config, but building or running its model raises
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.transport import resolve_device
 from repro_torch.data import threefry
@@ -40,6 +46,7 @@ __all__ = ["MoESettings", "SubSpec", "ModelConfig", "PORTED_KINDS",
            "advance_pos"]
 
 PORTED_KINDS = ("attn", "mlp")
+REMAT_POLICIES = ("full", "dots")
 _KINDS_ITEM = ("ROADMAP.md queue 1, 'Next' item 3 (other sublayer kinds and "
                "inputs)")
 
@@ -265,13 +272,31 @@ def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
     return x + o
 
 
+# the weight products that "dots" keeps: no batch dimensions
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_KW = {"full": {},
+             "dots": {"context_fn": functools.partial(
+                 create_selective_checkpoint_contexts, _dots_policy)}}
+
+
 def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                positions, caches=None):
     """Loop over periods (the reference scans); returns (x, caches). Decode
     writes each period's new K/V into the stacked caches in place. Under
-    autograd with ``cfg.remat`` each sublayer is checkpointed."""
+    autograd with ``cfg.remat`` each sublayer is checkpointed under
+    ``cfg.remat_policy``."""
     n = len(layer_params[0][0]["norm"]["scale"])
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    if remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"{cfg.name}: remat_policy {cfg.remat_policy!r}; "
+                         f"want one of {REMAT_POLICIES}")
     for i in range(n):
         ci = 0
         for pos, layer in enumerate(pattern):
@@ -283,7 +308,8 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                 sp = _period(layer_params[pos][si], i)
                 if remat:
                     x = checkpoint(_apply_sub, sp, s, cfg, x, positions, c,
-                                   use_reentrant=False)
+                                   use_reentrant=False,
+                                   **_REMAT_KW[cfg.remat_policy])
                 else:
                     x = _apply_sub(sp, s, cfg, x, positions, c)
     return x, caches

@@ -92,6 +92,68 @@ def test_combine_kernels_match_plain(op, dt, n, cuda):
     # views one element in are not 16-byte aligned: the scalar path
     _assert_bitwise(block_combine.combine3(a[1:], b[1:], c[1:], op=op),
                     ref.combine3_ref(a[1:], b[1:], c[1:], op=op))
+    _assert_bitwise(block_combine.combine2(a[1:], b[1:], op=op),
+                    ref.combine2_ref(a[1:], b[1:], op=op))
+
+
+def test_combine_wrappers_take_no_lock_and_no_device_context(cuda,
+                                                             monkeypatch):
+    """After the first call the wrappers neither take the build lock nor
+    enter a device context for operands on the current card: a call made
+    while another thread holds the lock, with ``torch.cuda.device``
+    replaced by a function that raises, still launches."""
+    import threading
+
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(5)
+    a, b, c = (_operand(rng, 4099, "f32", "add", cuda, i) for i in range(3))
+    block_combine.combine2(a, b)            # loads the library
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("entered a device context")
+
+    monkeypatch.setattr(torch.cuda, "device", refuse)
+    got = {}
+    worker = threading.Thread(target=lambda: got.update(
+        two=block_combine.combine2(a, b),
+        three=block_combine.combine3(a, b, c)))
+    with _build._LOCK:
+        worker.start()
+        worker.join(timeout=60)
+        alive = worker.is_alive()
+    worker.join(timeout=60)
+    monkeypatch.undo()                      # synchronize enters a context
+    assert not alive, "a wrapper waited for the build lock"
+    assert set(got) == {"two", "three"}
+    torch.cuda.synchronize()
+    _assert_bitwise(got["two"], ref.combine2_ref(a, b))
+    _assert_bitwise(got["three"], ref.combine3_ref(a, b, c))
+
+
+def test_combine_on_another_card_launches_there(cuda):
+    """Operands on a card other than the current one: the wrapper switches
+    to that card for the launch, on its current stream, and back."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", (torch.cuda.current_device() + 1)
+                         % torch.cuda.device_count())
+    rng = np.random.default_rng(6)
+    a, b, c = (_operand(rng, (1 << 20) + 3, "bf16", "max", other, i)
+               for i in range(3))
+    before = torch.cuda.current_device()
+    side = torch.cuda.Stream(device=other)
+    side.wait_stream(torch.cuda.current_stream(other))
+    with torch.cuda.device(other), torch.cuda.stream(side):
+        want3 = ref.combine3_ref(a, b, c, op="max")
+        want2 = ref.combine2_ref(a, b, op="max")
+    side.synchronize()
+    got3 = block_combine.combine3(a, b, c, op="max")
+    got2 = block_combine.combine2(a, b, op="max")
+    assert torch.cuda.current_device() == before
+    assert got3.device == got2.device == other
+    torch.cuda.synchronize(other)
+    _assert_bitwise(got3, want3)
+    _assert_bitwise(got2, want2)
 
 
 def _cast_inputs(rng, n):

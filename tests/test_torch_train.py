@@ -29,6 +29,7 @@ Tolerances:
 
 import argparse
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -357,11 +358,6 @@ def test_main_trains_on_the_cpu(capsys):
 @pytest.mark.parametrize("argv,item", [
     (["--mesh", "2x1"], "dist transport"),
     (["--collective", "dptree"], "dist transport"),
-    (["--ckpt-dir", "/nonexistent"], "checkpoint and resume"),
-    (["--ckpt-every", "5"], "checkpoint and resume"),
-    (["--max-restarts", "3"], "fault tolerance"),
-    (["--autotune-warmup"], "autotune warm-up"),
-    (["--autotune-cache", "x.json"], "autotune warm-up"),
 ])
 def test_refused_flags_name_their_roadmap_item(argv, item, capsys):
     with pytest.raises(SystemExit) as e:
@@ -369,6 +365,44 @@ def test_refused_flags_name_their_roadmap_item(argv, item, capsys):
     assert e.value.code != 0
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and item in err
+
+
+@pytest.mark.parametrize("flag", ["--ckpt-dir", "--ckpt-every",
+                                  "--max-restarts", "--autotune-warmup",
+                                  "--autotune-cache"])
+def test_ported_flags_train(flag, tmp_path, capsys):
+    """Each flag the reference's ``train.py`` takes for checkpoints,
+    restarts and the autotune warm-up runs through the port's with its
+    meaning:
+    ``--ckpt-every`` with a directory writes step 2 (after step 1) and the
+    last, ``--ckpt-dir`` alone writes the last step and a second run
+    resumes there, ``--max-restarts`` sets the supervisor's budget (no
+    failure here: 0 restarts)."""
+    from repro_torch.checkpoint import checkpointing
+    from repro_torch.core import autotune
+    d = str(tmp_path / "ck")
+    value = {"--ckpt-dir": [d], "--ckpt-every": ["1", "--ckpt-dir", d],
+             "--max-restarts": ["0"], "--autotune-warmup": [],
+             "--autotune-cache": [str(tmp_path / "tune.json")]}[flag]
+    argv = ["--arch", "minicpm_2b", "--reduced", "--steps", "3",
+            "--seq-len", "16", "--global-batch", "2", "--log-every", "1",
+            "--device", "cpu", flag, *value]
+    try:
+        run = train.main(argv)
+        assert run.restarts == 0 and len(run.history) == 3
+        assert np.isfinite(run.final_loss)
+        if flag == "--ckpt-every":
+            assert sorted(os.listdir(d)) == ["step_0000000002",
+                                             "step_0000000003"]
+        if flag == "--ckpt-dir":
+            assert checkpointing.latest_step(d) == 3
+            again = train.main(argv[:4] + ["4"] + argv[5:])
+            assert again.start == 3 and [i for i, _ in again.history] == [3]
+            assert "resumed from step 3" in capsys.readouterr().out
+        if flag == "--autotune-cache":
+            assert autotune.default_cache_path() == value[0]
+    finally:
+        autotune.set_cache_path(None)
 
 
 def test_main_defaults_to_the_card():
