@@ -25,9 +25,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    12/64/128/256, f32 and bf16 inputs, zero rows, .5 ties, codes at +-127
    and unaligned codes, then at the decode path's own shapes (one token's
    (576, 64) bf16 rows; the fused write of one token's K and V, (16, 1, 36,
-   64) each, into (16, 8192, 36, 64) int8 rings at slots 0, 4096 and 8191;
-   the whole (4,718,592, 64) int8 ring to bf16), timed, the token-sized
-   kernels by their device time per launch and host cost per call;
+   64) each, into (16, 8192, 36, 64) int8 rings with every row at slot 0,
+   4096 or 8191; the whole (4,718,592, 64) int8 ring to bf16), timed, the
+   token-sized kernels by their device time per launch and host cost per
+   call;
 5. the serving main path at full width: MiniCPM-2B (40 layers, d_model
    2304, 36 heads, 36 K/V heads, vocab 122,753) with bf16 weights and the
    int8 K/V cache, through the port's ``serve_loop``: batch 16, a ring of
@@ -68,9 +69,26 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    restart back at its level before the failed attempt, each save's and the
    restore's seconds (under a directory of ``build/`` the phase removes);
    then ``"dots"`` against ``"full"`` at all 40 layers and batch 2 in
-   turns: peak memory, median step, losses within ``TRAIN_TOL``.
+   turns: peak memory, median step, losses within ``TRAIN_TOL``;
+9. continuous serving at full width: MiniCPM-2B with bf16 weights and the
+   int8 K/V cache through the port's ``ServingEngine`` (16 slots, a ring of
+   8192 as in phase 5, prefill chunks of 1024), 24 synthetic requests a
+   tick apart with prompts of 256 to 2560 tokens and 8 to 32 new tokens:
+   the fused K/V write held bitwise against its plain version at the
+   path's two shapes, each row at its own position (a decode tick's 16
+   rows at mixed positions, a 1024-token chunk that wraps the ring), and
+   timed beside its byte bound; the greedy run with one fused write per
+   layer for every decode tick and prefill chunk and two dequantizes for
+   each, its streams bitwise those of the plain int8 run and of the static
+   policy; a seeded sampled run twice, equal, the second timed call by
+   call (so the greedy run's wall holds no extra sync); every request
+   ending with its budget; the run's per-tick stats reduced over 4 and
+   over 8 replicas stacked on the card (b = 1: the ring, then the
+   dual-root tree), equal to numpy's sum; ticks, wall, tokens/s, TTFT and
+   latency, the median decode tick and prefill chunk, the peak memory, the
+   phase's seconds, and one prefill chunk traced.
 
-In phases 3, 5, 7 and 8 the kernels' launch counters are zeroed just before the
+In phases 3, 5, 7, 8 and 9 the kernels' launch counters are zeroed just before the
 main path and read just after, and must show that the kernels carried it.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -111,6 +129,8 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, block_combine, quantize, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import serve, step_fns, train  # noqa: E402
+from repro_torch.serving import (SamplingParams, ServingEngine,  # noqa: E402
+                                 STATS_FIELDS, make_stats_reducer)
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.runtime import fault_tolerance  # noqa: E402
@@ -155,6 +175,12 @@ WRAPPERS = {"combine2": block_combine.combine2,
 # phase 5: MiniCPM-2B decode, cut from the reference's decode_32k cell
 # (batch 128, 32,768 cached tokens) to what one 80 GB card holds
 DECODE = dict(arch="minicpm_2b", batch=16, cache_len=8192, steps=32, seed=0)
+# phase 9: MiniCPM-2B continuous serving on phase 5's cache (16 slots, a
+# ring of 8192), prompts of up to three 1024-token prefill chunks
+SERVE = dict(arch="minicpm_2b", slots=16, cache_len=8192, prefill_chunk=1024,
+             requests=24, gap=1, prompt_lens=(256, 2560), max_new=(8, 32),
+             seed=0)
+SAMPLED = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=0)
 # phase 7: MiniCPM-2B training, cut from the reference's train_4k cell
 # (seq 4096, global batch 256) to the batch one 80 GB card holds
 TRAIN = dict(arch="minicpm_2b", seq_len=4096, global_batch=4, accum=1,
@@ -280,21 +306,30 @@ def in_turns(kernel, library, rounds: int = 4, timer=None) -> dict:
     return out
 
 
-def device_ms(fn, reps: int = 50) -> float:
+def device_ms(fn, reps: int = 50, sessions: int = 3) -> float:
     """Device time per launch of a call that launches one kernel: the
     profiler's self device time over ``reps`` calls, divided by the launches
     it recorded (the queue's gaps between launches are not in it). Raises
-    unless the calls ran one kernel, at most once per call."""
+    unless the calls ran one kernel, at most once per call. A session that
+    recorded no device activity at all (the profiler once returned none for
+    a kernel it records in other sessions) is logged and run again, up to
+    ``sessions`` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    for session in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if "CUDA" in str(e.device_type)
+                and e.self_device_time_total > 0]
+        if rows:
+            break
+        log(f"  profiler session {session + 1} recorded no device "
+            "activity; running it again")
     if len(rows) != 1 or not 0 < rows[0].count <= reps:
         raise AssertionError(f"{reps} calls ran "
                              f"{[(e.key[:60], e.count) for e in rows]}")
@@ -911,8 +946,10 @@ def check_kv_write(gen, batch, kv, width, slots, errs, dev) -> int:
         for slot in (0, slots // 2, slots - 1):
             got = [t.clone() for t in bufs]
             want = [t.clone() for t in bufs]
-            quantize.quantize_int8_into(k, v, *got, slot)
-            ref.quantize_int8_into_ref(k, v, *want, slot)
+            quantize.quantize_int8_into(k, v, *got, [slot] * batch,
+                                        [1] * batch)
+            ref.quantize_int8_into_ref(k, v, *want, [slot] * batch,
+                                       [1] * batch)
             for g, w, what in zip(got, want, ("K ring", "V ring",
                                               "K scales", "V scales")):
                 check_bitwise(g, w, f"quantize_int8_into {what} {dt} "
@@ -963,6 +1000,7 @@ def int8_phase(dev, token_rows: int, ring_rows: int, width: int,
     k, v, bufs = kv_write_inputs(gen, batch, kv_heads, width, slots,
                                  torch.bfloat16, dev)
     nt, nr = xt.numel(), q.numel()
+    mid, ones = [slots // 2] * batch, [1] * batch
     # name: (kernel, plain, bytes, ops, shape); ops: |x|, max, divide,
     # round per element (quantize), one product per element (dequantize)
     work = {
@@ -971,8 +1009,8 @@ def int8_phase(dev, token_rows: int, ring_rows: int, width: int,
                           2 * nt + nt + 4 * token_rows, 4 * nt,
                           list(xt.shape)),
         "quantize_int8_into": (
-            lambda: quantize.quantize_int8_into(k, v, *bufs, slots // 2),
-            lambda: ref.quantize_int8_into_ref(k, v, *bufs, slots // 2),
+            lambda: quantize.quantize_int8_into(k, v, *bufs, mid, ones),
+            lambda: ref.quantize_int8_into_ref(k, v, *bufs, mid, ones),
             2 * (2 * nt + nt + 4 * token_rows), 2 * 4 * nt,
             [list(k.shape), list(bufs[0].shape)]),
         "dequantize_int8": (
@@ -1679,6 +1717,236 @@ def _to(tree, dev):
     return tree.to(dev, copy=True)
 
 
+# ------------------------------------------------- continuous serving
+
+def slot_write_case(gen, B, T, KV, W, S, dev):
+    """A step's bf16 K and V (B, T, KV, W) and int8 rings of S slots with
+    scales that already hold earlier tokens."""
+    k, v = (torch.randn((B, T, KV, W), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    shape = (B, S, KV, W)
+    rings = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
+              for _ in range(2)]
+    return k, v, (*rings, *scales)
+
+
+def slot_write_shapes(dev) -> dict:
+    """The fused K/V write at the continuous path's two shapes, each row at
+    its own position, bitwise against its plain version and timed (device
+    time per launch from the profiler, host cost per call, the plain
+    version by CUDA events), beside its byte bound: each written token's
+    bf16 K and V rows read once, their codes and scales written once."""
+    cfg = get_config(SERVE["arch"])
+    KV, W, S, B = cfg.n_kv_heads, cfg.hdim, SERVE["cache_len"], SERVE["slots"]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    # a decode tick: rows at 0, 8191 and past the ring (a wrap), four
+    # inactive rows, the rest spread over the ring
+    pos = [0, S - 1, S + 5, 3 * S // 4] + [int(p) for p in torch.randint(
+        0, 2 * S, (B - 4,), generator=torch.Generator().manual_seed(3))]
+    n = [1, 1, 1, 0] + [0, 0, 0] + [1] * (B - 7)
+    # a prefill chunk: 1024 tokens at 7680, 700 of them real, so the
+    # write wraps from slot 8191 to slot 0
+    T = SERVE["prefill_chunk"]
+    cases = {"decode": ((B, 1), pos, n),
+             "prefill": ((1, T), [S - S // 16], [T * 700 // 1024])}
+    out, errs = {}, 0.0
+    for what, ((rows, T), p, c) in cases.items():
+        k, v, bufs = slot_write_case(gen, rows, T, KV, W, S, dev)
+        got = [t.clone() for t in bufs]
+        want = [t.clone() for t in bufs]
+        quantize.quantize_int8_into(k, v, *got, p, c)
+        ref.quantize_int8_into_ref(k, v, *want, p, c)
+        for g, w, name in zip(got, want, ("K ring", "V ring", "K scales",
+                                          "V scales")):
+            check_bitwise(g, w, f"quantize_int8_into {what} {name} "
+                          f"{list(g.shape)}")
+            errs = max(errs, max_abs_err(g.float(), w.float()))
+        del got, want
+        tokens = sum(c)
+        nbytes = 2 * tokens * KV * (2 * W + W + 4)
+        nops = 2 * 4 * tokens * KV * W
+        t_dev = device_ms(lambda: quantize.quantize_int8_into(
+            k, v, *bufs, p, c))
+        t_host = host_ms(lambda: quantize.quantize_int8_into(
+            k, v, *bufs, p, c))
+        t_plain = time_ms(lambda: ref.quantize_int8_into_ref(
+            k, v, *bufs, p, c), reps=10)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / F32_OPS_PER_S * 1e3
+        out[what] = {"shape": [list(k.shape), list(bufs[0].shape)],
+                     "tokens_written": tokens, "device_ms": t_dev,
+                     "host_ms": t_host, "plain_ms": t_plain,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes}
+        log(f"  quantize_int8_into {what} {out[what]['shape']}, "
+            f"{tokens} tokens written: device {t_dev:.4f} ms a launch, host "
+            f"{t_host:.4f} ms a call, plain {t_plain:.4f} ms, bound "
+            f"{out[what]['bound_ms']:.7f} ms ({out[what]['bound_by']}, "
+            f"{nbytes} bytes)")
+        del k, v, bufs
+    out["max_abs_err"] = errs
+    return out
+
+
+@contextlib.contextmanager
+def timed_steps(engine, times: dict):
+    """Time each of the engine's prefill and decode calls on the host
+    clock, the card synchronized before and after."""
+    saved = engine._prefill, engine._decode
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    engine._prefill = timed(saved[0], "prefill")
+    engine._decode = timed(saved[1], "decode")
+    try:
+        yield
+    finally:
+        engine._prefill, engine._decode = saved
+
+
+def workload(vocab: int, sampling=None) -> list:
+    return serve.synthetic_workload(
+        SERVE["requests"], vocab, gap=SERVE["gap"], seed=SERVE["seed"] + 1,
+        prompt_lens=SERVE["prompt_lens"], max_new=SERVE["max_new"],
+        sampling=sampling)
+
+
+def continuous_phase(dev) -> dict:
+    cfg = decode_config(get_config(SERVE["arch"]))
+    if not cfg.kv_quant:
+        raise AssertionError("MiniCPM-2B's decode config has no int8 cache")
+    res = {"slot_write": slot_write_shapes(dev)}
+    torch.cuda.empty_cache()
+    L = cfg.n_layers
+    log(f"  {cfg.name}: {L} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab_size}; "
+        f"{SERVE['slots']} slots, ring {SERVE['cache_len']}, prefill chunk "
+        f"{SERVE['prefill_chunk']}; {SERVE['requests']} requests a tick "
+        f"apart, prompts {SERVE['prompt_lens']}, new tokens "
+        f"{SERVE['max_new']}")
+    params = tf.init_params(cfg, SERVE["seed"], dev)
+    engine = ServingEngine(cfg, None, params, n_slots=SERVE["slots"],
+                           max_len=SERVE["cache_len"],
+                           prefill_chunk=SERVE["prefill_chunk"], device=dev)
+    reqs = workload(cfg.vocab_size)
+    times = {"prefill": [], "decode": []}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    greedy = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated()
+    calls = L * (greedy["decode_ticks"] + greedy["prefill_chunks"])
+    want = {"quantize_int8_into": calls, "dequantize_int8": 2 * calls,
+            "quantize_int8": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"continuous launches {launches}: want {want} "
+                             f"({greedy['decode_ticks']} decode ticks and "
+                             f"{greedy['prefill_chunks']} prefill chunks, "
+                             f"{L} layers)")
+    short = [r.rid for r in reqs if len(r.tokens) != r.max_new_tokens]
+    if greedy["requests"] != len(reqs) or short:
+        raise AssertionError(f"requests {short} did not end with their "
+                             "max_new_tokens")
+    log(f"  greedy: {greedy['ticks']} ticks ({greedy['decode_ticks']} "
+        f"decode, {greedy['prefill_chunks']} prefill chunks), "
+        f"{greedy['total_tokens']} tokens in {greedy['wall_s']:.3f} s, "
+        f"{greedy['tok_s']:.1f} tok/s; TTFT p50/p95 "
+        f"{greedy['ttft_ticks_p50']}/{greedy['ttft_ticks_p95']} ticks, "
+        f"latency p50/p95 {greedy['latency_ticks_p50']}/"
+        f"{greedy['latency_ticks_p95']} ticks; peak memory "
+        f"{peak / 1e9:.2f} GB; launches {launches}")
+    with plain_int8():
+        plain = engine.run(workload(cfg.vocab_size))
+    if plain["tokens"] != greedy["tokens"]:
+        raise AssertionError("continuous streams differ from the plain "
+                             "int8 run")
+    static = engine.run(workload(cfg.vocab_size), static=True)
+    if static["tokens"] != greedy["tokens"]:
+        raise AssertionError("continuous streams differ from the static "
+                             "policy's")
+    log(f"  greedy streams bitwise those of the plain int8 run and of the "
+        f"static policy ({static['ticks']} ticks, {static['wall_s']:.3f} s,"
+        f" TTFT p50 {static['ttft_ticks_p50']} ticks)")
+    # the second sampled run also times each prefill and decode call, with
+    # a sync around each, so that the greedy run's wall has none
+    sampled = [engine.run(workload(cfg.vocab_size, SAMPLED))]
+    with timed_steps(engine, times):
+        sampled.append(engine.run(workload(cfg.vocab_size, SAMPLED)))
+    if sampled[0]["tokens"] != sampled[1]["tokens"]:
+        raise AssertionError("the two sampled runs differ")
+    if sampled[0]["sampled_tokens"] != sampled[0]["total_tokens"]:
+        raise AssertionError(f"sampled run: {sampled[0]['sampled_tokens']} "
+                             f"of {sampled[0]['total_tokens']} sampled")
+    log(f"  sampled ({SAMPLED}): two runs equal, "
+        f"{sampled[0]['total_tokens']} tokens in "
+        f"{sampled[0]['wall_s']:.3f} / {sampled[1]['wall_s']:.3f} s (the "
+        f"second timed call by call); median decode tick "
+        f"{np.median(times['decode']) * 1e3:.2f} ms, median prefill chunk "
+        f"{np.median(times['prefill']) * 1e3:.2f} ms (host clock, card "
+        f"synchronized around each)")
+    # the per-tick stats rows, as p replicas' sums, reduced on the card:
+    # p = 4, where the alpha-beta switch picks the ring for 64 bytes, and
+    # p = 8, where it picks the dual-root tree (combine3 on the card)
+    rows = np.array([[getattr(s, f) for f in STATS_FIELDS]
+                     for s in greedy["steps"]], np.float32)
+    reduce_launches = {}
+    for p in (4, 8):
+        replicas = np.stack([part.sum(0)
+                             for part in np.array_split(rows, p)])
+        zero_counters()
+        summed = make_stats_reducer(LocalTransport(p, dev))(replicas)
+        reduce_launches[p] = counters()["combine3"]
+        if not np.array_equal(summed, rows.sum(0)):
+            raise AssertionError(f"stats reduction at p={p}: {summed} != "
+                                 f"numpy {rows.sum(0)}")
+    log(f"  stats of {len(rows)} ticks reduced over 4 and 8 replicas on the "
+        f"card (b = 1; combine3 launches {reduce_launches}): equal to the "
+        "numpy sum")
+    # one prefill chunk of 1024 tokens into a fresh slot, traced
+    session = engine.start()
+    chunk = torch.randint(1, cfg.vocab_size, (1, SERVE["prefill_chunk"]),
+                          device=dev)
+    engine._prefill(params, chunk, session.caches, 0, chunk.shape[1])
+    trace = device_breakdown(lambda: engine._prefill(
+        params, chunk, session.caches, 0, chunk.shape[1]), top=10)
+    log(f"  prefill chunk traced: {json.dumps(trace)}")
+    del engine, params, session
+    torch.cuda.empty_cache()
+    res.update({
+        "launches": launches, "max_memory_bytes": peak,
+        "ticks": greedy["ticks"], "decode_ticks": greedy["decode_ticks"],
+        "prefill_chunks": greedy["prefill_chunks"],
+        "total_tokens": greedy["total_tokens"], "wall_s": greedy["wall_s"],
+        "tokens_per_s": greedy["tok_s"],
+        "ttft_ticks_p50": greedy["ttft_ticks_p50"],
+        "ttft_ticks_p95": greedy["ttft_ticks_p95"],
+        "latency_ticks_p50": greedy["latency_ticks_p50"],
+        "latency_ticks_p95": greedy["latency_ticks_p95"],
+        "median_decode_tick_s": float(np.median(times["decode"])),
+        "median_prefill_chunk_s": float(np.median(times["prefill"])),
+        "plain_wall_s": plain["wall_s"], "static": {
+            "ticks": static["ticks"], "wall_s": static["wall_s"],
+            "ttft_ticks_p50": static["ttft_ticks_p50"]},
+        "sampled_wall_s": [r["wall_s"] for r in sampled],
+        "stats_reduce_combine3_launches": reduce_launches,
+        "prefill_chunk_trace": trace})
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1732,8 +2000,24 @@ def main() -> int:
         "remat, MiniCPM-2B at full width")
     ckpt = ckpt_phase(dev, training["max_memory_bytes"])
     log("checkpoint path: " + json.dumps(ckpt))
+    log("phase 9: continuous serving, MiniCPM-2B at full width")
+    t9 = time.perf_counter()
+    cont = continuous_phase(dev)
+    cont["seconds"] = time.perf_counter() - t9
+    write = rows["quantize_int8_into"]
+    write["slot_shapes"] = cont.pop("slot_write")
+    write["max_abs_err"] = max(write["max_abs_err"],
+                               write["slot_shapes"]["max_abs_err"])
+    for name in ("quantize_int8_into", "dequantize_int8"):
+        rows[name]["launches_by_path"] = {
+            "decode": main_launches[name],
+            "continuous": cont["launches"][name]}
+        main_launches[name] += cont["launches"][name]
+    log(f"phase 9 seconds {cont['seconds']:.2f}")
+    log("continuous path: " + json.dumps(cont))
     for name in ("combine3", "compress_bf16", "decompress_bf16",
-                 "quantize_int8_into", "dequantize_int8", "flash_attention"):
+                 "quantize_int8_into", "dequantize_int8",
+                 "flash_attention"):
         if main_launches[name] == 0:
             raise AssertionError(f"{name} was not launched on its main path")
     for name, row in rows.items():

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["LocalTransport", "resolve_device"]
+__all__ = ["LocalTransport", "resolve_device", "host_to"]
 
 _PRIMITIVE = {"add": "sum", "max": "amax", "min": "amin"}
 
@@ -33,6 +33,17 @@ def resolve_device(device=None) -> torch.device:
             # name the card, so the device compares equal to its tensors'
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def host_to(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``. To a card it goes through pinned memory
+    without blocking, so the copy joins the stream's queue instead of
+    waiting for the work already in it (a plain ``.to`` from pageable memory
+    synchronizes the stream)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 class LocalTransport:

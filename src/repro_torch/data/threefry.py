@@ -14,6 +14,12 @@ counter pair ``(0, data)``, the same under either setting. Since each
 element hashes its own index, a draw can be made in pieces of the flat
 index (``start``/``stop``) with the same bits as the whole.
 
+The serving sampler draws one key per row: :func:`fold_in_rows` is
+``jax.vmap(jax.random.fold_in)`` over ``(B, 2)`` keys and a ``(B,)`` step
+vector, and :func:`categorical` is ``jax.vmap(jax.random.categorical)``:
+the argmax of the logits plus Gumbel noise ``-log(-log(u))``, ``u`` drawn
+by ``uniform(key, (V,), minval=tiny, maxval=1)``, with XLA's ``log``.
+
 :func:`normal` is ``jax.random.normal`` in f32: ``sqrt(2) * erf_inv(u)``
 with ``u`` uniform in ``(-1, 1)``, and ``erf_inv`` as XLA compiles it for
 the CPU: Giles' single-precision polynomial over ``w = -log1p(-u*u)``,
@@ -31,8 +37,8 @@ import math
 
 import torch
 
-__all__ = ["threefry2x32", "prng_key", "fold_in", "split", "random_bits",
-           "uniform", "normal"]
+__all__ = ["threefry2x32", "prng_key", "fold_in", "fold_in_rows", "split",
+           "random_bits", "uniform", "normal", "gumbel_rows", "categorical"]
 
 _M = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -45,8 +51,14 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
     """The Threefry-2x32 hash (20 rounds) of counter words ``x0``, ``x1``
     (int64 tensors of uint32 values, one shape) under ``key``; returns the
-    two hashed words, as ``jax.random``'s ``threefry2x32_p``."""
-    k0, k1 = int(key[0]), int(key[1])
+    two hashed words, as ``jax.random``'s ``threefry2x32_p``. A ``(B, 2)``
+    ``key`` hashes row ``b`` of the counters (leading dim ``B``, or 1 to
+    share them) under key ``b``, on the counters' device."""
+    if key.dim() == 1:
+        k0, k1 = int(key[0]), int(key[1])
+    else:
+        lead = (key.shape[0],) + (1,) * (x0.dim() - 1)
+        k0, k1 = (key[:, i].to(x0.device).reshape(lead) for i in (0, 1))
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M
     x1 = (x1 + ks[1]) & _M
@@ -73,6 +85,14 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
                      device=key.device)
     y0, y1 = threefry2x32(key, c[:1], c[1:])
     return torch.cat([y0, y1])
+
+
+def fold_in_rows(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``jax.vmap(jax.random.fold_in)(keys, data)``: ``(B, 2)`` keys, each
+    folded with its row's entry of the ``(B,)`` integer ``data``."""
+    x1 = data.to(device=keys.device, dtype=torch.int64) & _M
+    y0, y1 = threefry2x32(keys, torch.zeros_like(x1), x1)
+    return torch.stack([y0, y1], dim=1)
 
 
 def _iota_words(n: int, device, start: int = 0):
@@ -119,6 +139,31 @@ def _unit(bits: torch.Tensor) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape)``: f32 in [0, 1)."""
     return _unit(random_bits(key, shape))
+
+
+# f32 tiny (the smallest normal), the floor of jax.random's gumbel uniform
+_TINY = 1.1754943508222875e-38
+
+
+def gumbel_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.gumbel(k, (n,)))(keys)`` in f32
+    ("low" mode): ``-log(-log(u))`` with ``u = max(tiny, f * (1 - tiny) +
+    tiny)`` from the uniform ``f`` in [0, 1) of each row's key, ``1 - tiny``
+    being 1 in f32, and the logs XLA's. ``(B, 2)`` keys give ``(B, n)``."""
+    hi, lo = _iota_words(n, keys.device)
+    y0, y1 = threefry2x32(keys, hi[None], lo[None])
+    f = _unit(y0 ^ y1)
+    tiny = _f32(_TINY, f)
+    u = torch.maximum(tiny, f + tiny)
+    return -_log(-_log(u))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.vmap(jax.random.categorical)(keys, logits)``: one draw per row
+    of the ``(B, V)`` f32 logits, the first index of the largest
+    ``gumbel + logits`` (int64)."""
+    g = gumbel_rows(keys.to(logits.device), logits.shape[-1])
+    return torch.argmax(g + logits, dim=-1)
 
 
 # ------------------------------------------------------------------ normal

@@ -4,8 +4,8 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/quantize.py:
 //   _cast_kernel (pallas_call at quantize.py:90), as compress_bf16 and
 //     decompress_bf16;
-//   _quant_kernel (quantize.py:32, pallas_call at :63), as quantize_int8 and
-//     the fused K/V write quantize_int8_into;
+//   _quant_kernel (quantize.py:32, pallas_call at :63), as quantize_int8
+//     and the fused K/V write quantize_int8_into;
 //   _dequant_kernel (quantize.py:41, pallas_call at :130), as dequantize_int8.
 //
 // compress: f32 -> bf16, round to nearest even (__float2bfloat16_rn), the
@@ -41,11 +41,18 @@
 // so launches and the host set its pace. Design: one warp per row over a
 // full grid, each lane holding up to eight values in registers, a shuffle
 // reduction for the absmax; no shared memory. The fused entry takes K and
-// V together (one launch per decode layer) and writes each row's codes and
-// scale straight into the ring at (b, slot + t, g), every address from the
-// strides it is given, so neither a contiguity copy nor a slice assignment
-// follows; quantize_int8 is the same kernel over (R, W) rows into fresh
-// buffers.
+// V together (one launch per layer of a decode step or prefill chunk) and
+// writes each row's codes and scale straight into the ring, every address
+// from the strides it is given, so neither a contiguity copy nor a slice
+// assignment follows. Each batch row has a start position and a count:
+// token t of row b lands at (pos[b] + t) mod S, and only while t < n[b], so
+// the continuous-batching engine's slots each write at their own position,
+// a prefill chunk's pad tokens and an inactive slot write nothing, and no
+// old value is written back; the fixed-batch decode step is the case
+// pos[b] = slot, n[b] = T. The plan rides in the kernel's parameter block
+// (__grid_constant__, no host-to-device copy) for up to 256 rows, else in
+// a small device array. quantize_int8 is the same kernel over (R, W) rows
+// into fresh buffers (one batch row of R tokens).
 //
 // dequantize_int8: out = (float)q * scale[row], rounded once to bf16
 // (__float2bfloat16_rn) or kept f32. Bound: memory, the byte-heavy kernel of
@@ -199,43 +206,39 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 
 // Where the rows of the fused write live, in elements: source row
 // (b, t, g) starts at b * sb + t * st + g * sg, its codes at
-// b * qb + (slot + t) * qs + g * qg and its scale at
-// b * cb + (slot + t) * cs + g * cg; a row's values are contiguous.
+// b * qb + p * qs + g * qg and its scale at b * cb + p * cs + g * cg, p its
+// ring position (from the plan below); a row's values are contiguous.
 struct RowGeometry {
   int64_t rows;               // B * T * KV rows per source
-  int64_t T, KV, slot;
+  int64_t T, KV, S;           // S: ring positions
   int64_t sb, st, sg, qb, qs, qg, cb, cs, cg;
   int width;
 };
 
-// Warp r < rows quantizes source 0's row r, warp rows + r source 1's (when
-// there is one). The grid holds a warp for every row, so r is the same on
-// every lane of a warp and the shuffles below see all 32.
+// The write's plan: row b's token t lands at ring position
+// (pos[b] + t) mod S, and only while t < n[b] (pos[b] < S, n[b] <= S, so
+// one subtraction wraps). Up to kPlanRows rows travel by value in the
+// kernel's parameter block (2 KB of its 4 KB); more come as a device array
+// of 2 B ints, the B positions then the B counts.
+constexpr int kPlanRows = 256;
+struct RowPlan {
+  int32_t pos[kPlanRows];
+  int32_t n[kPlanRows];
+};
+
+// One warp quantizes one row of `width` values at x into codes at q and
+// its scale at *scale.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    quant_write_kernel(const T* __restrict__ x0, const T* __restrict__ x1,
-                       int8_t* __restrict__ q0, int8_t* __restrict__ q1,
-                       float* __restrict__ s0, float* __restrict__ s1,
-                       RowGeometry g) {
-  const int lane = threadIdx.x % kWarp;
-  int64_t r = static_cast<int64_t>(blockIdx.x) * (kThreads / kWarp) +
-              threadIdx.x / kWarp;
-  const bool second = r >= g.rows;
-  if (second) {
-    r -= g.rows;
-    if (x1 == nullptr || r >= g.rows) return;
-  }
-  const int64_t gi = r % g.KV, ti = (r / g.KV) % g.T, bi = r / (g.KV * g.T);
-  const int64_t pos = g.slot + ti;
-  const T* x = (second ? x1 : x0) + bi * g.sb + ti * g.st + gi * g.sg;
-  int8_t* q = (second ? q1 : q0) + bi * g.qb + pos * g.qs + gi * g.qg;
-  float* scale = (second ? s1 : s0) + bi * g.cb + pos * g.cs + gi * g.cg;
+__device__ __forceinline__ void quant_row(const T* __restrict__ x,
+                                          int8_t* __restrict__ q,
+                                          float* __restrict__ scale,
+                                          int width, int lane) {
   float v[kPerLane];
   float m = 0.0f;
 #pragma unroll
   for (int j = 0; j < kPerLane; ++j) {
     const int c = lane + j * kWarp;
-    v[j] = c < g.width ? load_f32(x, c) : 0.0f;
+    v[j] = c < width ? load_f32(x, c) : 0.0f;
     m = nan_max(m, fabsf(v[j]));
   }
 #pragma unroll
@@ -245,7 +248,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int j = 0; j < kPerLane; ++j) {
     const int c = lane + j * kWarp;
-    if (c < g.width) {
+    if (c < width) {
       float t = rintf(v[j] / s);
       // clamp as torch.clamp does: a NaN stays NaN
       t = t < -127.0f ? -127.0f : (t > 127.0f ? 127.0f : t);
@@ -255,16 +258,60 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) *scale = s;
 }
 
-int launch_quant(int dtype, const void* x0, const void* x1, void* q0,
-                 void* q1, void* s0, void* s1, const RowGeometry& g,
-                 cudaStream_t st) {
+// Warp r < rows quantizes source 0's row r, warp rows + r source 1's (when
+// there is one). The grid holds a warp for every row, so r is the same on
+// every lane of a warp and the shuffles see all 32. Row b's tokens land at
+// their ring positions (plan, or dplan when it is not null), and a warp
+// whose token lies past its row's count writes nothing (pads of a prefill
+// chunk, inactive slots of a decode tick).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quant_write_kernel(const T* __restrict__ x0, const T* __restrict__ x1,
+                       int8_t* __restrict__ q0, int8_t* __restrict__ q1,
+                       float* __restrict__ s0, float* __restrict__ s1,
+                       RowGeometry g, const __grid_constant__ RowPlan plan,
+                       const int32_t* __restrict__ dplan) {
+  const int lane = threadIdx.x % kWarp;
+  int64_t r = static_cast<int64_t>(blockIdx.x) * (kThreads / kWarp) +
+              threadIdx.x / kWarp;
+  const bool second = r >= g.rows;
+  if (second) {
+    r -= g.rows;
+    if (x1 == nullptr || r >= g.rows) return;
+  }
+  const int64_t gi = r % g.KV, ti = (r / g.KV) % g.T, bi = r / (g.KV * g.T);
+  const int64_t batch = g.rows / (g.KV * g.T);
+  const int64_t n = dplan != nullptr ? dplan[batch + bi] : plan.n[bi];
+  if (ti >= n) return;
+  int64_t pos = (dplan != nullptr ? dplan[bi] : plan.pos[bi]) + ti;
+  if (pos >= g.S) pos -= g.S;
+  quant_row((second ? x1 : x0) + bi * g.sb + ti * g.st + gi * g.sg,
+            (second ? q1 : q0) + bi * g.qb + pos * g.qs + gi * g.qg,
+            (second ? s1 : s0) + bi * g.cb + pos * g.cs + gi * g.cg,
+            g.width, lane);
+}
+
+int check_quant(int dtype, const RowGeometry& g) {
   if (g.width < 1 || g.width > kMaxWidth || dtype < 0 || dtype > 1 ||
       g.T < 1 || g.KV < 1 || g.rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (g.rows == 0) return 0;
-  const int64_t warps = g.rows * (x1 == nullptr ? 1 : 2);
+  return 0;
+}
+
+// Blocks for one warp per row of `sources` sources, or -1 if too many.
+int64_t quant_blocks(const RowGeometry& g, int sources) {
+  const int64_t warps = g.rows * sources;
   const int64_t blocks = (warps + kThreads / kWarp - 1) / (kThreads / kWarp);
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  return blocks > 0x7fffffff ? -1 : blocks;
+}
+
+int launch_quant(int dtype, const void* x0, const void* x1, void* q0,
+                 void* q1, void* s0, void* s1, const RowGeometry& g,
+                 const RowPlan& plan, const int32_t* dplan, cudaStream_t st) {
+  if (const int bad = check_quant(dtype, g)) return bad;
+  if (g.rows == 0) return 0;
+  const int64_t blocks = quant_blocks(g, x1 == nullptr ? 1 : 2);
+  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   int8_t* c0 = static_cast<int8_t*>(q0);
   int8_t* c1 = static_cast<int8_t*>(q1);
   float* f0 = static_cast<float*>(s0);
@@ -272,12 +319,12 @@ int launch_quant(int dtype, const void* x0, const void* x1, void* q0,
   if (dtype == 0)
     quant_write_kernel<float><<<static_cast<int>(blocks), kThreads, 0, st>>>(
         static_cast<const float*>(x0), static_cast<const float*>(x1), c0, c1,
-        f0, f1, g);
+        f0, f1, g, plan, dplan);
   else
     quant_write_kernel<uint16_t><<<static_cast<int>(blocks), kThreads, 0,
                                    st>>>(
         static_cast<const uint16_t*>(x0), static_cast<const uint16_t*>(x1),
-        c0, c1, f0, f1, g);
+        c0, c1, f0, f1, g, plan, dplan);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -379,40 +426,59 @@ extern "C" int q_decompress_bf16(const void* x, void* y, long long n,
 }
 
 // dtype codes: 0 = f32, 1 = bf16. (rows, width) contiguous rows into
-// fresh (rows, width) codes and (rows, 1) scales.
+// fresh (rows, width) codes and (rows, 1) scales: one batch row of `rows`
+// tokens, each at its own position.
 extern "C" int q_quantize_int8(int dtype, const void* x, void* q, void* scale,
                                long long rows, int width, void* stream) {
+  if (rows < 0 || rows > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
   RowGeometry g{};
-  g.rows = rows;
-  g.T = g.KV = 1;
-  g.sb = g.qb = width;
-  g.cb = 1;
+  g.rows = g.T = g.S = rows;
+  g.KV = 1;
+  g.st = g.qs = width;
+  g.cs = 1;
   g.width = width;
-  return launch_quant(dtype, x, nullptr, q, nullptr, scale, nullptr, g,
-                      static_cast<cudaStream_t>(stream));
+  RowPlan p{};
+  p.n[0] = static_cast<int32_t>(rows);
+  return launch_quant(dtype, x, nullptr, q, nullptr, scale, nullptr, g, p,
+                      nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // The fused K/V write: xk, xv (B, T, KV, width) into the rings qk, qv
-// (B, S, KV, width) and scales sk, sv (B, S, KV, 1) at slot..slot + T - 1.
-// geo: B, T, KV, width, slot, then the strides (in elements, for b, t or s,
-// g) of the sources, of the rings and of the scales; the two sources share
-// theirs, as do the two rings and the two scale arrays.
+// (B, S, KV, width) and scales sk, sv (B, S, KV, 1), row b's token t at
+// ring position (pos[b] + t) mod S while t < n[b]. geo: B, T, KV, width, S,
+// then the strides (in elements, for b, t or s, g) of the sources, of the
+// rings and of the scales; the two sources share theirs, as do the two
+// rings and the two scale arrays. plan: 2 B host ints (the positions, each
+// in [0, S), then the counts, each in [0, min(T, S)]) when B <= kPlanRows,
+// else null and dplan the same ints on the device.
 extern "C" int q_quantize_int8_into(int dtype, const void* xk,
                                     const void* xv, void* qk, void* qv,
                                     void* sk, void* sv, const long long* geo,
+                                    const int* plan, const int* dplan,
                                     void* stream) {
-  if (geo[0] < 0 || geo[3] > kMaxWidth || geo[4] < 0)
+  const int64_t B = geo[0];
+  if (B < 0 || geo[3] > kMaxWidth || geo[4] < 1 ||
+      (plan == nullptr) == (dplan == nullptr) ||
+      (plan != nullptr && B > kPlanRows))
     return static_cast<int>(cudaErrorInvalidValue);
   RowGeometry g{};
   g.T = geo[1];
   g.KV = geo[2];
-  g.rows = geo[0] * g.T * g.KV;
+  g.rows = B * g.T * g.KV;
   g.width = static_cast<int>(geo[3]);
-  g.slot = geo[4];
+  g.S = geo[4];
   g.sb = geo[5], g.st = geo[6], g.sg = geo[7];
   g.qb = geo[8], g.qs = geo[9], g.qg = geo[10];
   g.cb = geo[11], g.cs = geo[12], g.cg = geo[13];
-  return launch_quant(dtype, xk, xv, qk, qv, sk, sv, g,
+  RowPlan p{};
+  if (plan != nullptr)
+    for (int64_t b = 0; b < B; ++b) {
+      p.pos[b] = plan[b];
+      p.n[b] = plan[B + b];
+    }
+  return launch_quant(dtype, xk, xv, qk, qv, sk, sv, g, p, dplan,
                       static_cast<cudaStream_t>(stream));
 }
 

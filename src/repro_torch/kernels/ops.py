@@ -6,9 +6,10 @@ kernels' rows. Here the last dim is the row, whatever its width (the cache's
 ``head_dim``). The model's decode step writes a token's K and V through
 :func:`kv_quantize_write` (the reference's ``quantize_kv_rows`` and two
 ``dynamic_update_slice`` each for K and V, in one launch) and reads the
-ring through :func:`kv_dequantize`. Each resolves
-:mod:`repro_torch.kernels.quantize`'s wrapper when it is called, so a
-caller that swaps the wrapper for the plain version (``chip_smoke.py``
+ring through :func:`kv_dequantize`; the continuous-batching engine's slot
+steps write through the same entry, each row at its own position. Each
+resolves :mod:`repro_torch.kernels.quantize`'s wrapper when it is called,
+so a caller that swaps the wrapper for the plain version (``chip_smoke.py``
 does, to hold the decode path against it) swaps it here.
 """
 
@@ -30,11 +31,12 @@ def kv_quantize(x: torch.Tensor):
 
 def kv_quantize_write(k: torch.Tensor, v: torch.Tensor, cache_k: torch.Tensor,
                       cache_v: torch.Tensor, scale_k: torch.Tensor,
-                      scale_v: torch.Tensor, slot: int) -> None:
-    """K and V (B, T, KV, W) quantized into the int8 rings (B, S, KV, W) and
-    their f32 scales (B, S, KV, 1) at ``slot``, in place."""
+                      scale_v: torch.Tensor, pos, n) -> None:
+    """Token ``t`` of row ``b`` of K and V (B, T, KV, W) quantized into
+    ring position ``(pos[b] + t) % S`` of the int8 rings (B, S, KV, W) and
+    their f32 scales (B, S, KV, 1) for ``t < n[b]``, in place."""
     quantize.quantize_int8_into(k, v, cache_k, cache_v, scale_k, scale_v,
-                                slot)
+                                pos, n)
 
 
 def kv_dequantize(q: torch.Tensor, s: torch.Tensor,

@@ -4,8 +4,11 @@
 * :func:`decompress_bf16` — bf16 -> f32, exact (bf16 embeds into f32)
 * :func:`quantize_int8` — (R, W) f32/bf16 rows -> int8 codes + f32 scale
   per row, W <= 256
-* :func:`quantize_int8_into` — one decode step's K and V rows quantized
-  straight into the int8 rings and their scales, in place, in one launch
+* :func:`quantize_int8_into` — one step's K and V rows quantized straight
+  into the int8 rings and their scales, in place, in one launch, with a
+  start position and a token count per batch row, wrapping around the
+  ring (the fixed-batch decode step and the continuous-batching engine's
+  slots)
 * :func:`dequantize_int8` — codes * scale, as f32 or bf16
 
 For a CUDA tensor each wrapper launches its hand-written kernel in
@@ -27,10 +30,13 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["MAX_WIDTH", "compress_bf16", "decompress_bf16", "quantize_int8",
-           "quantize_int8_into", "dequantize_int8"]
+__all__ = ["MAX_WIDTH", "PLAN_ROWS", "compress_bf16", "decompress_bf16",
+           "quantize_int8", "quantize_int8_into", "dequantize_int8"]
 
 MAX_WIDTH = 256                      # quantize_int8: one warp, 8 per lane
+# rows whose positions and counts travel in the kernel's parameter block
+# (kPlanRows in csrc/quantize.cu); more go as a device array
+PLAN_ROWS = 256
 _FLOAT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -38,7 +44,8 @@ _SIGNATURES = {
     "q_compress_bf16": ([_P, _P, _LL, _P], _I),
     "q_decompress_bf16": ([_P, _P, _LL, _P], _I),
     "q_quantize_int8": ([_I, _P, _P, _P, _LL, _I, _P], _I),
-    "q_quantize_int8_into": ([_I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "q_quantize_int8_into": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                             _I),
     "q_dequantize_int8": ([_I, _P, _P, _P, _LL, _I, _P], _I),
     "q_error_string": ([_I], ctypes.c_char_p),
 }
@@ -141,14 +148,21 @@ def quantize_int8(x: torch.Tensor):
 def quantize_int8_into(k: torch.Tensor, v: torch.Tensor,
                        k_ring: torch.Tensor, v_ring: torch.Tensor,
                        k_scale: torch.Tensor, v_scale: torch.Tensor,
-                       slot: int) -> None:
-    """One decode step's K/V cache write, in place: ``k`` and ``v`` (B, T,
-    KV, W) f32 or bf16, W <= :data:`MAX_WIDTH`, are quantized row by row as
-    :func:`quantize_int8` does, and the codes land in the int8 rings
-    ``k_ring``/``v_ring`` (B, S, KV, W) at positions ``slot`` to
-    ``slot + T - 1``, the scales in ``k_scale``/``v_scale`` (B, S, KV, 1)
-    f32. On the card one launch does both; the kernel takes the sources'
-    and the rings' strides (each row's W values contiguous)."""
+                       pos, n) -> None:
+    """One step's K/V cache write, in place: ``k`` and ``v`` (B, T, KV, W)
+    f32 or bf16, W <= :data:`MAX_WIDTH`, are quantized row by row as
+    :func:`quantize_int8` does, and token ``t`` of batch row ``b`` lands in
+    the int8 rings ``k_ring``/``v_ring`` (B, S, KV, W) at ring position
+    ``(pos[b] + t) % S``, its scale in ``k_scale``/``v_scale`` (B, S, KV,
+    1) f32, only while ``t < n[b]``: a prefill chunk's pad tokens and an
+    inactive slot (``n[b] = 0``) write nothing, and nothing old is written
+    back. The fixed-batch decode step is the case ``pos[b] = slot``,
+    ``n[b] = T``. ``pos`` and ``n`` are B host integers (a sequence or a
+    CPU tensor), ``pos[b] >= 0`` and ``0 <= n[b] <= min(T, S)``. On the
+    card one launch does K and V from the sources', rings' and scales'
+    strides (each row's W values contiguous); up to :data:`PLAN_ROWS`
+    rows' positions and counts ride in its parameter block, more in a
+    device array."""
     if k.dim() != 4 or k.shape != v.shape or k.dtype != v.dtype:
         raise ValueError(f"quantize_int8_into takes K and V of one (B, T, KV,"
                          f" W) shape and dtype, got {tuple(k.shape)} "
@@ -172,12 +186,17 @@ def quantize_int8_into(k: torch.Tensor, v: torch.Tensor,
     if v.device != k.device or k.device.type not in ("cpu", "cuda"):
         raise ValueError(f"quantize_int8_into runs on cpu or cuda, got "
                          f"{k.device} and {v.device}")
-    if not 0 <= slot <= S - T:
-        raise ValueError(f"slot {slot} + {T} tokens does not fit a ring of "
-                         f"{S}")
+    pos = [int(p) for p in pos]
+    n = [int(c) for c in n]
+    if len(pos) != B or len(n) != B:
+        raise ValueError(f"quantize_int8_into takes {B} positions and "
+                         f"counts, got {len(pos)} and {len(n)}")
+    if any(p < 0 for p in pos) or any(not 0 <= c <= min(T, S) for c in n):
+        raise ValueError(f"positions must be >= 0 and counts in [0, "
+                         f"{min(T, S)}], got {pos} and {n}")
     if k.device.type == "cpu":
         ref.quantize_int8_into_ref(k, v, k_ring, v_ring, k_scale, v_scale,
-                                   slot)
+                                   pos, n)
         return
     if k.stride(-1) != 1 or v.stride() != k.stride():
         k, v = k.contiguous(), v.contiguous()
@@ -185,14 +204,22 @@ def quantize_int8_into(k: torch.Tensor, v: torch.Tensor,
             v_scale.stride() != k_scale.stride():
         raise ValueError("the rings must share their strides, each row "
                          "contiguous, and so must the scale arrays")
-    if k.numel() == 0:
+    if not any(n) or W == 0 or KV == 0:
         return
-    geo = (ctypes.c_longlong * 14)(B, T, KV, W, slot, *k.stride()[:3],
+    geo = (ctypes.c_longlong * 14)(B, T, KV, W, S, *k.stride()[:3],
                                    *k_ring.stride()[:3],
                                    *k_scale.stride()[:3])
+    words = [p % S for p in pos] + n
+    plan, dplan = None, None
+    if B <= PLAN_ROWS:
+        plan = (ctypes.c_int * (2 * B))(*words)
+    else:
+        dplan = torch.tensor(words, dtype=torch.int32).pin_memory().to(
+            k.device, non_blocking=True)
     _launch("q_quantize_int8_into", k, _FLOAT_CODE[k.dtype], k.data_ptr(),
             v.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), geo)
+            k_scale.data_ptr(), v_scale.data_ptr(), geo, plan,
+            None if dplan is None else dplan.data_ptr())
     quantize_int8_into.launches += 1
 
 

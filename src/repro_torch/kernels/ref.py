@@ -64,16 +64,22 @@ def quantize_int8_ref(x: torch.Tensor):
 
 
 def quantize_int8_into_ref(k, v, k_ring, v_ring, k_scale, v_scale,
-                           slot: int) -> None:
+                           pos, n) -> None:
     """The fused K/V cache write: :func:`quantize_int8_ref` of ``k``'s and
-    ``v``'s (B, T, KV, W) rows, then the slice assignments into the rings
-    (B, S, KV, W) and scales (B, S, KV, 1) at ``slot``, in place (the
-    reference's ``_cache_write``, with its ``dynamic_update_slice``)."""
-    end = slot + k.shape[1]
+    ``v``'s (B, T, KV, W) rows, then token ``t`` of row ``b`` assigned to
+    ring position ``(pos[b] + t) % S`` for ``t < n[b]`` (B host integers
+    each), in place; the reference's slot write with its pad writes
+    suppressed (``attention_decode_slots``)."""
+    S = k_ring.shape[1]
+    t = torch.arange(k.shape[1])
+    bi, ti = torch.nonzero(t[None] < torch.as_tensor(n)[:, None],
+                           as_tuple=True)
+    si = (torch.as_tensor(pos, dtype=torch.int64)[bi] + ti) % S
+    bi, ti, si = (i.to(k.device) for i in (bi, ti, si))
     for x, ring, scale in ((k, k_ring, k_scale), (v, v_ring, v_scale)):
         q, s = quantize_int8_ref(x.reshape(-1, x.shape[-1]))
-        ring[:, slot:end] = q.view(x.shape)
-        scale[:, slot:end] = s.view(*x.shape[:-1], 1)
+        ring[bi, si] = q.view(x.shape)[bi, ti]
+        scale[bi, si] = s.view(*x.shape[:-1], 1)[bi, ti]
 
 
 def dequantize_int8_ref(q: torch.Tensor, scale: torch.Tensor,

@@ -1,12 +1,16 @@
-"""Step builders (the port of ``repro.launch.step_fns``): the train step
-and the fixed-batch decode step, on one device.
+"""Step builders (the port of ``repro.launch.step_fns``): the train step,
+the fixed-batch and the slot decode steps and the slot prefill step, on one
+device.
 
 :func:`make_train_step` is the reference's train step at one data-parallel
 rank: no mesh and no sharding specs. At p = 1 the reference's gradient
 reduction (``bucketed_all_reduce`` over a 1-rank axis, collectives.py:327)
 returns its input and its division by the rank count is by 1, so the port
-calls no collective. :func:`make_serve_step` is the reference's
-``slots=False`` branch. Nothing compiles, since PyTorch runs eagerly. The
+calls no collective. :func:`make_serve_step` and
+:func:`make_prefill_step` are the reference's builders for the
+fixed-batch loop (``slots=False``) and for the continuous-batching engine
+(``slots=True``, ``into_slots=True``). Nothing compiles, since PyTorch
+runs eagerly. The
 reference donates the params, optimizer state and caches to its jitted
 steps; the port's steps update them in place, which is the same contract:
 the caller uses what a step returns, not what it passed.
@@ -14,6 +18,7 @@ the caller uses what a step returns, not what it passed.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ParallelConfig
@@ -21,7 +26,10 @@ from repro_torch.models import transformer as tf
 from repro_torch.optim.optimizers import (Optimizer, adamw, cosine_schedule,
                                          tree_leaves, tree_map)
 
-__all__ = ["make_train_step", "make_serve_step"]
+__all__ = ["make_train_step", "make_serve_step", "make_prefill_step"]
+
+_TP = ("tensor-parallel decode is not ported yet: ROADMAP.md queue 1, "
+       "'Next' item 4 (the dist transport)")
 
 
 def _grad_leaves(params, grads):
@@ -100,23 +108,108 @@ def make_train_step(cfg: tf.ModelConfig, pcfg: ParallelConfig | None = None,
     return step
 
 
+def _guard(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The decode-logits guard: a row whose logits hold a NaN or an inf
+    reports the ``-1`` sentinel instead of a token, so the engine refuses
+    to commit the tick (an argmax over non-finite logits still yields a
+    plausible id)."""
+    ok = torch.isfinite(logits).all(dim=-1)
+    return torch.where(ok, tokens, torch.full_like(tokens, -1))
+
+
 def make_serve_step(cfg: tf.ModelConfig, pcfg: ParallelConfig | None = None,
                     slots: bool = False):
-    """Returns ``step(params, inputs, caches) -> (logits (B, V) f32,
-    caches)``, the fixed-batch decode step (every row advances every
-    call)."""
-    if slots:
-        raise NotImplementedError(
-            "slot serving (per-row positions, prefill_step) is not ported "
-            "yet: ROADMAP.md queue 1, 'Next' item 2 (the continuous engine)")
+    """The decode step.
+
+    ``slots=False``: ``step(params, inputs, caches) -> (logits (B, V) f32,
+    caches)``, the fixed-batch decode step (every row advances every call).
+
+    ``slots=True``: ``step(params, inputs, caches, active, sampling=None)
+    -> (tokens (B,) int64 on the device, caches)`` against per-slot caches,
+    the continuous-batching engine's tick. ``active`` (B,) host bools marks
+    the rows holding in-flight requests; the others write nothing and keep
+    their positions. ``sampling`` is None (greedy argmax) or the per-slot
+    sampler state ``{key (B, 2), step (B,), temperature (B,), top_k (B,),
+    top_p (B,)}``; greedy rows take the same argmax either way. A row whose
+    logits are not finite returns ``-1``."""
     if pcfg is not None and pcfg.tp_shards > 1:
-        raise NotImplementedError(
-            "tensor-parallel decode is not ported yet: ROADMAP.md queue 1, "
-            "'Next' item 4 (the dist transport)")
+        raise NotImplementedError(_TP)
     tf.check_supported(cfg)
 
+    if not slots:
+        @torch.no_grad()
+        def step(params, inputs, caches):
+            return tf.decode_step(params, cfg, inputs, caches)
+
+        return step
+
+    from repro_torch.serving.sampling import sample_tokens
+
     @torch.no_grad()
-    def step(params, inputs, caches):
-        return tf.decode_step(params, cfg, inputs, caches)
+    def slot_step(params, inputs, caches, active, sampling=None):
+        logits, caches = tf.decode_step(params, cfg, inputs, caches,
+                                        active=active)
+        if sampling is None:
+            tokens = torch.argmax(logits, dim=-1)
+        else:
+            tokens = sample_tokens(logits, sampling["key"], sampling["step"],
+                                   sampling["temperature"],
+                                   sampling["top_k"], sampling["top_p"])
+        return _guard(logits, tokens), caches
+
+    return slot_step
+
+
+def _splice_pos(caches: tuple, rows: tuple, slot: int) -> tuple:
+    """``caches`` with slot ``slot``'s positions taken from the batch-of-1
+    ``rows`` (the K/V rows are views, written already)."""
+    out = []
+    for c, r in zip(caches, rows):
+        pos = c["pos"].clone()
+        pos[:, slot] = r["pos"][:, 0]
+        out.append({**c, "pos": pos})
+    return tuple(out)
+
+
+def make_prefill_step(cfg: tf.ModelConfig, pcfg: ParallelConfig | None = None,
+                      into_slots: bool = True):
+    """The serving engine's cache-writing prefill: ``step(params, tokens
+    (1, Tc), caches, slot, length, resume=False, sampling_row=None) ->
+    (first token (0-dim int64 on the device), caches)``.
+
+    The prompt chunk runs through the stack as a single row, on views of
+    the slot's row of the per-slot caches, so its K/V lands in the slot in
+    place and every other slot stays bit-unchanged; the cost follows the
+    chunk, not the slot count. ``resume=False`` starts the row at position
+    0 (a first chunk), ``resume=True`` continues it (chunks 2..n). The
+    token, meaningful on the final chunk, is the argmax of the last real
+    position's logits, or with ``sampling_row`` (``{key (2,), temperature,
+    top_k, top_p}``) the seeded sampler's draw at step 0. The reference's
+    ``into_slots=False`` form (the dry run's prefill proxy) comes with
+    queue 1's item 7."""
+    if not into_slots:
+        raise NotImplementedError(
+            "the full-sequence prefill proxy is not ported yet: ROADMAP.md "
+            "queue 1, 'Next' item 7 (tooling and benches)")
+    if pcfg is not None and pcfg.tp_shards > 1:
+        raise NotImplementedError(_TP)
+    tf.check_supported(cfg)
+    from repro_torch.serving.sampling import sample_tokens
+
+    @torch.no_grad()
+    def step(params, tokens, caches, slot, length, *, resume=False,
+             sampling_row=None):
+        slot, length = int(slot), int(length)
+        logits, rows = tf.prefill_step(
+            params, cfg, {"tokens": tokens}, tf.cache_row(caches, slot),
+            [length], resume=resume)
+        caches = _splice_pos(caches, rows, slot)
+        if sampling_row is None:
+            return torch.argmax(logits[0]), caches
+        row = {k: np.asarray(v)[None] for k, v in sampling_row.items()}
+        first = torch.zeros(1, dtype=torch.int64)     # the first token: step 0
+        tok = sample_tokens(logits, row["key"], first, row["temperature"],
+                            row["top_k"], row["top_p"])
+        return tok[0], caches
 
     return step

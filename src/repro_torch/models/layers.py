@@ -3,10 +3,11 @@
 Plain functions on tensors with parameters in nested dicts, in the
 reference's layouts: activations ``(B, T, D)``, heads ``(B, T, H, dh)``,
 K/V rings ``(B, S, KV, dh)``, so the parity tests compare like with like.
-This slice ports what the fixed-batch decode loop and the short-sequence
-forward run: RMSNorm, the activations, RoPE (without M-RoPE), GQA attention
-with causal, window and chunk masks, the ring K/V cache in bf16 or int8, and
-the MLP. ``attention`` at T > ``FLASH_THRESHOLD`` takes the flash path,
+This slice ports what the fixed-batch decode loop, the continuous-batching
+engine's slot steps and the short-sequence forward run: RMSNorm, the
+activations, RoPE (without M-RoPE), GQA attention with causal, window and
+chunk masks, the ring K/V cache in bf16 or int8 (one position for the whole
+batch, or one per row: :func:`attention_decode_slots`), and the MLP. ``attention`` at T > ``FLASH_THRESHOLD`` takes the flash path,
 as the reference does: :func:`repro_torch.kernels.flash_attention.flash_sdpa`,
 the hand-written kernel on a CUDA tensor and the port of the reference's
 ``_flash_sdpa`` on the CPU, differentiable either way.
@@ -25,13 +26,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.transport import host_to
 from repro_torch.data import threefry
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
 __all__ = ["Params", "AttnConfig", "FLASH_THRESHOLD", "INIT_CHUNK",
            "dense_init", "rmsnorm_init", "rmsnorm", "act_fn", "rope_freqs", "apply_rope",
-           "attention", "attention_decode", "mlp"]
+           "attention", "attention_decode", "attention_decode_slots", "mlp"]
 
 Params = dict
 
@@ -251,10 +253,12 @@ def _cache_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
     """Write one step's ``k`` and ``v`` (B, T, KV, dh) into the rings at
     ``slot``, IN PLACE (the reference donates its caches, so it may too):
     an int8 ring takes the codes and the rows' scales from one fused
-    quantize launch on the card, a bf16 ring the cast values."""
+    quantize launch on the card (every row at ``slot``), a bf16 ring the
+    cast values."""
     if cache["k"].dtype == torch.int8:
+        B, T = k.shape[:2]
         ops.kv_quantize_write(k, v, cache["k"], cache["v"], cache["ks"],
-                              cache["vs"], slot)
+                              cache["vs"], [slot] * B, [T] * B)
         return
     end = slot + k.shape[1]
     cache["k"][:, slot:end] = k.to(cache["k"].dtype)
@@ -303,6 +307,87 @@ def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor,
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bgrts,bsgd->btgrd", w, cache_v)
     out = out.reshape(B, 1, H * dh) @ p["wo"].to(x.dtype)
+    return out, new_cache
+
+
+def _cache_write_rows(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                      pos: torch.Tensor, n: torch.Tensor,
+                      slots: torch.Tensor, real: torch.Tensor) -> None:
+    """Write token ``t`` of row ``b`` of ``k`` and ``v`` (B, T, KV, dh) into
+    the rings at ``slots[b, t]`` (device, ``(pos[b] + t) % S``) while ``t <
+    n[b]``, IN PLACE; ``pos`` and ``n`` are the rows' host start positions
+    and counts, ``real`` the device mask ``t < n[b]``. An int8 ring takes
+    one launch of the fused write, which skips the other tokens; a
+    bf16 ring an ``index_put_`` of every (row, slot) pair, with the old
+    value written back where the token is not written (a row's T slots are
+    distinct, since T <= S)."""
+    if cache["k"].dtype == torch.int8:
+        ops.kv_quantize_write(k, v, cache["k"], cache["v"], cache["ks"],
+                              cache["vs"], pos.tolist(), n.tolist())
+        return
+    brow = torch.arange(k.shape[0], device=k.device)[:, None]
+    m = real[..., None, None]
+    for name, val in (("k", k), ("v", v)):
+        arr = cache[name]
+        arr[brow, slots] = torch.where(m, val.to(arr.dtype), arr[brow, slots])
+
+
+def attention_decode_slots(p: Params, cfg: AttnConfig, x: torch.Tensor,
+                           cache: Params, cache_pos: torch.Tensor,
+                           lengths: torch.Tensor | None = None,
+                           active: torch.Tensor | None = None):
+    """Decode or prefill against a ring K/V cache with PER-ROW positions
+    (the continuous-batching engine's slots).
+
+    x: (B, T, D), T = 1 for a decode tick, the prompt bucket for a prefill
+    chunk; cache_pos: (B,) host integers, the tokens already cached per row.
+    Token t of row b is written at ring slot ``(cache_pos[b] + t) % S`` and
+    attends causally to absolute positions ``<= cache_pos[b] + t``. T <= S
+    per call. ``lengths`` (B,) host integers: tokens ``t >= lengths[b]``
+    are bucket padding and are not written (a resumed chunk's bucket may
+    wrap the ring over live prompt K/V). ``active`` (B,) host bools: an
+    inactive row writes nothing (the reference writes and then merges its
+    old row back; the port leaves it untouched), and its output is
+    meaningless. Writes in place and returns (out (B, T, D), cache dict).
+    """
+    B, T, _ = x.shape
+    S = cache["k"].shape[1]
+    if T > S:
+        raise ValueError(f"a call of {T} tokens would write a ring of {S} "
+                         "slots twice")
+    pos = cache_pos.to(torch.int64)
+    n = torch.full((B,), T, dtype=torch.int64) if lengths is None \
+        else torch.as_tensor(lengths).to(torch.int64)
+    if active is not None:
+        n = n * torch.as_tensor(active).to(torch.int64)
+    # after this call's writes row b's newest absolute position is
+    # pos + n - 1; slot s holds last - ((last - s) mod S) (negative: never
+    # written for this request)
+    dpos, dn = host_to(torch.stack([pos, n]), x.device)
+    t = torch.arange(T, device=x.device)
+    positions = dpos[:, None] + t[None]                       # (B, T)
+    q, k, v = _qkv(p, cfg, x, positions)
+    _cache_write_rows(cache, k, v, pos, n, torch.remainder(positions, S),
+                      t[None] < dn[:, None])
+    new_cache = {c: cache[c] for c in ("k", "v", "ks", "vs") if c in cache}
+    cache_k = _cache_read(cache["k"], cache.get("ks"), q.dtype)
+    cache_v = _cache_read(cache["v"], cache.get("vs"), q.dtype)
+    last = (dpos + dn - 1)[:, None]                           # (B, 1)
+    ki = last - torch.remainder(last - torch.arange(S, device=x.device), S)
+    ki = ki[:, None, :]                                       # (B, 1, S)
+    qpos = positions[..., None]                               # (B, T, 1)
+    valid = (ki >= 0) & (ki <= qpos)
+    if cfg.sliding_window is not None:
+        valid &= ki > qpos - cfg.sliding_window
+    if cfg.chunk_size is not None:
+        valid &= (ki // cfg.chunk_size) == (qpos // cfg.chunk_size)
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qg = q.reshape(B, T, KV, H // KV, dh)
+    logits = _scores(qg, cache_k, dh).masked_fill(~valid[:, None, None],
+                                                  -1e30)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrts,bsgd->btgrd", w, cache_v)
+    out = out.reshape(B, T, H * dh) @ p["wo"].to(x.dtype)
     return out, new_cache
 
 

@@ -19,6 +19,14 @@ outputs of its weight products, the 2-D ``aten.mm``/``aten.addmm`` that
 the batched products (``bmm``), the flash attention, norms, RoPE and
 activations. The policies change memory and time, not a number.
 
+Decoding runs on two cache layouts: one position for the whole batch
+(:func:`decode_step`, the fixed-batch loop) and one per row, the
+continuous-batching engine's slots (``init_cache(per_slot=True)``,
+:func:`decode_step` with ``active``, :func:`prefill_step`). Positions stay
+on the host in both; the K/V rings are written in place, and a row that is
+not written keeps its bytes (the reference writes every row and merges the
+old ones back, ``merge_cache_rows``).
+
 This slice builds the dense decoders (sublayer kinds ``attn`` and ``mlp``,
 token inputs). A config with another kind, M-RoPE, embeddings input or an
 encoder is a valid config, but building or running its model raises
@@ -35,7 +43,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.core.transport import resolve_device
+from repro_torch.core.transport import host_to, resolve_device
 from repro_torch.data import threefry
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Params
@@ -43,7 +51,9 @@ from repro_torch.models.layers import Params
 __all__ = ["MoESettings", "SubSpec", "ModelConfig", "PORTED_KINDS",
            "check_supported", "init_params", "init_cache", "embed_inputs",
            "forward", "unembed", "chunked_ce_loss", "loss_fn", "decode_step",
-           "advance_pos"]
+           "advance_pos", "cache_layer_kinds", "prefill_call_bound",
+           "supports_slot_serving", "reset_cache_slots", "cache_row",
+           "prefill_step"]
 
 PORTED_KINDS = ("attn", "mlp")
 REMAT_POLICIES = ("full", "dots")
@@ -208,14 +218,17 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> Params:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               kv_dtype=torch.bfloat16, device=None) -> tuple:
+               kv_dtype=torch.bfloat16, device=None, per_slot: bool = False,
+               ring_slack: int = 0) -> tuple:
     """Stacked ``(n_periods, ...)`` ring caches, one dict per attention
     sublayer of the pattern: ``k``/``v`` ``(n_periods, batch, S, KV, dh)``
     in ``kv_dtype``, or int8 with f32 scales ``ks``/``vs``
     ``(n_periods, batch, S, KV, 1)`` when ``cfg.kv_quant``; ``S`` is
-    ``max_len``, or the window or chunk where one bounds it. ``pos``
-    ``(n_periods,)`` int32 counts the tokens cached; it stays on the host,
-    so the write slot and the validity mask need no device sync."""
+    ``max_len``, or the window or chunk (plus ``ring_slack``) where one
+    bounds it. ``pos`` counts the tokens cached: ``(n_periods,)`` int32, or
+    ``(n_periods, batch)`` with ``per_slot`` (each row an independently
+    paced slot of the serving engine). It stays on the host, so the write
+    slot and the validity mask need no device sync."""
     check_supported(cfg)
     dev = resolve_device(device)
     KV, dh, n = cfg.n_kv_heads, cfg.hdim, cfg.n_periods
@@ -226,11 +239,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                 continue
             S = max_len
             if s.sliding_window is not None:
-                S = min(S, s.sliding_window)
+                S = min(S, s.sliding_window + ring_slack)
             if s.chunk_size is not None:
-                S = min(S, s.chunk_size)
+                S = min(S, s.chunk_size + ring_slack)
             shape = (n, batch, S, KV, dh)
-            c = {"pos": torch.zeros((n,), dtype=torch.int32)}
+            c = {"pos": torch.zeros((n, batch) if per_slot else (n,),
+                                    dtype=torch.int32)}
             if cfg.kv_quant:
                 for name in ("k", "v"):
                     c[name] = torch.zeros(shape, dtype=torch.int8, device=dev)
@@ -242,6 +256,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                     c[name] = torch.zeros(shape, dtype=kv_dtype, device=dev)
             caches.append(c)
     return tuple(caches)
+
+
+def cache_layer_kinds(cfg: ModelConfig) -> tuple:
+    """Kind of each entry of the caches tuple, in cache order (``"attn"``;
+    the reference's ``"mamba"`` and ``"rwkv"`` caches come with queue 1's
+    item 3)."""
+    return tuple(s.kind for layer in cfg.pattern for s in layer
+                 if s.kind in ("attn", "mamba", "rwkv"))
 
 
 # --------------------------------------------------------------------------
@@ -257,13 +279,18 @@ def _period(tree, i: int):
 
 
 def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
-               positions, cache):
+               positions, cache, lengths=None, active=None):
     """One sublayer (``attn`` or ``mlp``: the entry points have checked the
-    config). A decode ``cache`` (one period's views) is written in place."""
+    config). A decode ``cache`` (one period's views) is written in place:
+    per-slot caches (``pos`` per row) through ``attention_decode_slots``,
+    with ``lengths`` (prefill pads) and ``active`` (rows to write)."""
     h = L.rmsnorm(sp["norm"], x)
     if s.kind == "attn":
         acfg = cfg.attn_cfg(s)
-        if cache is not None:
+        if cache is not None and cache["pos"].dim():
+            o, _ = L.attention_decode_slots(sp, acfg, h, cache, cache["pos"],
+                                            lengths=lengths, active=active)
+        elif cache is not None:
             o, _ = L.attention_decode(sp, acfg, h, cache, int(cache["pos"]))
         else:
             o = L.attention(sp, acfg, h, positions)
@@ -287,9 +314,10 @@ _REMAT_KW = {"full": {},
 
 
 def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
-               positions, caches=None):
+               positions, caches=None, lengths=None, active=None):
     """Loop over periods (the reference scans); returns (x, caches). Decode
-    writes each period's new K/V into the stacked caches in place. Under
+    writes each period's new K/V into the stacked caches in place (per-slot
+    caches: ``lengths`` and ``active`` as in ``attention_decode_slots``). Under
     autograd with ``cfg.remat`` each sublayer is checkpointed under
     ``cfg.remat_policy``."""
     n = len(layer_params[0][0]["norm"]["scale"])
@@ -311,7 +339,8 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                                    use_reentrant=False,
                                    **_REMAT_KW[cfg.remat_policy])
                 else:
-                    x = _apply_sub(sp, s, cfg, x, positions, c)
+                    x = _apply_sub(sp, s, cfg, x, positions, c, lengths,
+                                   active)
     return x, caches
 
 
@@ -385,21 +414,139 @@ def loss_fn(params: Params, cfg: ModelConfig, inputs: dict,
 # decode (serving)
 # --------------------------------------------------------------------------
 
+def _per_slot(caches: tuple) -> bool:
+    return any(c["pos"].dim() == 2 for c in caches if "pos" in c)
+
+
+def _host_rows(mask, B: int) -> torch.Tensor:
+    """A (B,) host bool tensor from a bool sequence or tensor."""
+    m = torch.as_tensor(mask).to("cpu", torch.bool).reshape(-1)
+    if m.shape != (B,):
+        raise ValueError(f"want {B} row flags, got {tuple(m.shape)}")
+    return m
+
+
 def decode_step(params: Params, cfg: ModelConfig, inputs: dict,
-                caches: tuple) -> tuple:
+                caches: tuple, active=None) -> tuple:
     """One-token decode. inputs: {'tokens': (B, 1)}. Returns (logits (B, V)
     f32, caches with positions advanced). The K/V rings are updated in
-    place: the returned caches share their tensors with ``caches``."""
+    place: the returned caches share their tensors with ``caches``.
+
+    ``active`` (per-slot caches only): (B,) host bools, the rows whose slot
+    holds an in-flight request. The other rows compute (their logits mean
+    nothing) but write no K/V and keep their position: a free or a
+    prefilling slot is left bit-unchanged."""
     check_supported(cfg)
+    B = inputs["tokens"].shape[0]
+    if active is not None:
+        if not _per_slot(caches):
+            raise ValueError("active rows need per-slot caches "
+                             "(init_cache(per_slot=True))")
+        active = _host_rows(active, B)
     x, _ = embed_inputs(params, cfg, inputs)
     x, caches = _run_stack(params["layers"], cfg.pattern, cfg, x, None,
-                           caches)
+                           caches, active=active)
     x = L.rmsnorm(params["final_norm"], x)
     logits = unembed(params, cfg, x)[:, -1]
-    return logits.to(torch.float32), advance_pos(caches)
+    return logits.to(torch.float32), advance_pos(caches, active)
 
 
-def advance_pos(caches: tuple) -> tuple:
-    """Increment every attention cache's position by one."""
-    return tuple({**c, "pos": c["pos"] + 1} if "pos" in c else c
+def advance_pos(caches: tuple, active=None) -> tuple:
+    """Increment every attention cache's position by one: everywhere, or
+    (per-slot caches) on the rows where ``active`` is True."""
+    step = 1 if active is None else torch.as_tensor(active).to(torch.int32)
+    return tuple({**c, "pos": c["pos"] + step} if "pos" in c else c
                  for c in caches)
+
+
+# --------------------------------------------------------------------------
+# KV-cache slot ops (continuous-batching serving)
+# --------------------------------------------------------------------------
+
+def prefill_call_bound(cfg: ModelConfig, max_len: int) -> int:
+    """Longest single slot prefill CALL the cache geometry allows: every
+    attention sublayer must fit the call's tokens in its (possibly
+    window/chunk-bounded) ring, or one call would write a ring slot
+    twice."""
+    s_min = max_len
+    for layer in cfg.pattern:
+        for s in layer:
+            if s.kind == "attn":
+                if s.sliding_window is not None:
+                    s_min = min(s_min, s.sliding_window)
+                if s.chunk_size is not None:
+                    s_min = min(s_min, s.chunk_size)
+    return s_min
+
+
+def supports_slot_serving(cfg: ModelConfig) -> bool:
+    """Whether the continuous-batching engine can drive this architecture:
+    the reference's rule, any decoder-only token-prompt stack. (Building
+    one whose kinds this slice does not port still raises
+    ``NotImplementedError``.)"""
+    kinds = {s.kind for layer in cfg.pattern for s in layer}
+    return (cfg.input_mode == "tokens" and not cfg.n_enc_layers
+            and kinds <= {"attn", "mlp", "moe", "mamba", "rwkv"})
+
+
+def reset_cache_slots(caches: tuple, free_mask) -> tuple:
+    """Free the cache rows where ``free_mask`` (B,) is True: their K/V and
+    scales are zeroed in place, one ``index_fill_`` per leaf, and their
+    positions set to 0 (which alone hides the old K/V from every later
+    read; the zeros keep no request's data in a free slot)."""
+    first = next(c for c in caches if "pos" in c)
+    free = _host_rows(free_mask, first["pos"].shape[-1])
+    rows = torch.nonzero(free).flatten()
+    if not len(rows):
+        return caches
+    out = []
+    for c in caches:
+        idx = host_to(rows, c["k"].device)
+        for name, leaf in c.items():
+            if name != "pos":
+                leaf.index_fill_(1, idx, 0)
+        out.append({**c, "pos": torch.where(free[None], 0, c["pos"])})
+    return tuple(out)
+
+
+def cache_row(caches: tuple, slot: int) -> tuple:
+    """One slot's row of per-slot caches as batch-of-1 VIEWS, positions
+    included: what a call writes into the row lands in the caches, so the
+    port needs neither the reference's ``extract_cache_row`` copy nor its
+    ``adopt_prefix`` splice."""
+    return tuple({k: v[:, slot:slot + 1] for k, v in c.items()}
+                 for c in caches)
+
+
+def prefill_step(params: Params, cfg: ModelConfig, inputs: dict,
+                 caches: tuple, lengths, active=None,
+                 resume: bool = False) -> tuple:
+    """Prefill prompt chunks into per-slot caches (continuous-batching
+    admission).
+
+    inputs: {'tokens': (B, Tc)} right-padded chunks; lengths: (B,) host
+    integers, the chunks' true lengths (<= Tc); active: (B,) host bools,
+    the rows admitted by this call (default all). With ``resume=False`` an
+    active row restarts at position 0 (its ring slots ``0..len-1`` take the
+    chunk's K/V; position arithmetic hides the rest); with ``resume=True``
+    (chunks 2..n of a long prompt) it continues at its position. Inactive
+    rows are not written and keep their positions. Returns (logits (B, V)
+    f32 at each row's last real token, caches with the active rows'
+    positions advanced by ``lengths``); the rings are written in place."""
+    check_supported(cfg)
+    B = inputs["tokens"].shape[0]
+    lengths = torch.as_tensor(lengths).to("cpu", torch.int64).reshape(-1)
+    act = torch.ones(B, dtype=torch.bool) if active is None \
+        else _host_rows(active, B)
+    if not resume:
+        caches = tuple({**c, "pos": torch.where(act[None], 0, c["pos"])}
+                       for c in caches)
+    x, _ = embed_inputs(params, cfg, inputs)
+    x, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, None, caches,
+                      lengths=lengths, active=act)
+    x = L.rmsnorm(params["final_norm"], x)
+    idx = host_to((lengths - 1).clamp_min(0), x.device)
+    last = x[torch.arange(B, device=x.device), idx][:, None]
+    logits = unembed(params, cfg, last)[:, 0].to(torch.float32)
+    grow = (lengths * act).to(torch.int32)
+    return logits, tuple({**c, "pos": c["pos"] + grow} for c in caches)

@@ -265,8 +265,8 @@ def _kv_step(rng, B, KV, W, S, dt, device):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("width", [12, 16, 64, 128, 256])
 def test_fused_kv_write_matches_plain(width, dt, slot, cuda):
-    """The fused K/V write against its plain version (quantize, then the
-    slice assignments), bit for bit on both rings and both scale arrays:
+    """The fused K/V write of a decode step (every row at one slot) against
+    its plain version, bit for bit on both rings and both scale arrays:
     the new slot holds the codes and scales, every other slot its old
     bytes, and the call is one launch."""
     B, KV, S = 3, 5, 9
@@ -276,10 +276,10 @@ def test_fused_kv_write_matches_plain(width, dt, slot, cuda):
     got = [t.clone() for t in (*rings, *scales)]
     want = [t.clone() for t in (*rings, *scales)]
     before = quantize.quantize_int8_into.launches
-    quantize.quantize_int8_into(k, v, *got, at)
+    quantize.quantize_int8_into(k, v, *got, [at] * B, [1] * B)
     torch.cuda.synchronize()
     assert quantize.quantize_int8_into.launches == before + 1
-    ref.quantize_int8_into_ref(k, v, *want, at)
+    ref.quantize_int8_into_ref(k, v, *want, [at] * B, [1] * B)
     for g, w, old in zip(got, want, (*rings, *scales)):
         _assert_bitwise(g, w)
         keep = torch.arange(S, device=cuda) != at
@@ -300,10 +300,97 @@ def test_fused_kv_write_at_the_decode_shape(cuda):
     for at in (0, 37, S - 1):
         got = [t.clone() for t in (*rings, *scales)]
         want = [t.clone() for t in (*rings, *scales)]
-        quantize.quantize_int8_into(ks, vs, *got, at)
-        ref.quantize_int8_into_ref(k, v, *want, at)
+        quantize.quantize_int8_into(ks, vs, *got, [at] * B, [1] * B)
+        ref.quantize_int8_into_ref(k, v, *want, [at] * B, [1] * B)
         for g, w in zip(got, want):
             _assert_bitwise(g, w)
+
+
+def _rows_case(rng, B, T, KV, W, S, dt, device):
+    """A step's K and V rows, (B, T, KV, W), and int8 rings of S slots
+    (with scales) that already hold earlier tokens."""
+    x = _int8_rows(rng, 2 * B * T * KV - 4, W).to(DTYPES[dt])
+    k, v = (t.reshape(B, T, KV, W).to(device)
+            for t in x.split(B * T * KV))
+    rings = [torch.from_numpy(rng.integers(-127, 128, (B, S, KV, W)).astype(
+        np.int8)).to(device) for _ in range(2)]
+    scales = [torch.from_numpy(rng.uniform(1e-3, 1, (B, S, KV, 1)).astype(
+        np.float32)).to(device) for _ in range(2)]
+    return k, v, rings, scales
+
+
+def _check_rows_write(k, v, rings, scales, pos, n):
+    """The per-row write against its plain version, bitwise on both rings
+    and both scale arrays, in one launch; the positions no token of the
+    call lands on keep their old bytes."""
+    got = [t.clone() for t in (*rings, *scales)]
+    want = [t.clone() for t in (*rings, *scales)]
+    before = quantize.quantize_int8_into.launches
+    quantize.quantize_int8_into(k, v, *got, pos, n)
+    torch.cuda.synchronize()
+    assert quantize.quantize_int8_into.launches == before + (
+        1 if any(n) else 0)
+    ref.quantize_int8_into_ref(k, v, *want, pos, n)
+    S = rings[0].shape[1]
+    for g, w, old in zip(got, want, (*rings, *scales)):
+        _assert_bitwise(g, w)
+        for b, (p, c) in enumerate(zip(pos, n)):
+            keep = torch.ones(S, dtype=torch.bool)
+            keep[[(p + t) % S for t in range(c)]] = False
+            _assert_bitwise(g[b, keep.to(g.device)], old[b, keep.to(g.device)])
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [12, 64, 256])
+def test_per_row_kv_write_matches_plain(width, dt, cuda):
+    """Each row at its own position: a row that wraps the ring, one at the
+    last slot, an inactive row (count 0), a position past S, pad tokens
+    past a row's count."""
+    B, T, KV, S = 5, 4, 3, 9
+    k, v, rings, scales = _rows_case(np.random.default_rng(width), B, T, KV,
+                                     width, S, dt, cuda)
+    _check_rows_write(k, v, rings, scales, [0, 7, 8, 3, 20], [4, 2, 0, 1, 4])
+
+
+def test_fused_kv_write_at_one_slot_is_quantize_int8_in_the_slot(cuda):
+    """``pos[b] = slot``, ``n[b] = T`` for every row writes, bit for bit,
+    the codes and scales that ``quantize_int8`` (the same kernel into fresh
+    buffers) gives for K's and V's rows, at slots ``slot`` to ``slot + T -
+    1``."""
+    B, T, KV, W, S = 3, 2, 5, 64, 8
+    k, v, rings, scales = _rows_case(np.random.default_rng(9), B, T, KV, W,
+                                     S, "bf16", cuda)
+    got = [t.clone() for t in (*rings, *scales)]
+    quantize.quantize_int8_into(k, v, *got, [5] * B, [T] * B)
+    for x, ring, scale in zip((k, v), got[:2], got[2:]):
+        q, s = quantize.quantize_int8(x.reshape(-1, W))
+        _assert_bitwise(ring[:, 5:5 + T], q.view(B, T, KV, W))
+        _assert_bitwise(scale[:, 5:5 + T], s.view(B, T, KV, 1))
+
+
+def test_per_row_kv_write_above_the_plan_cap(cuda):
+    """More rows than the parameter block holds: the plan goes as a device
+    array, with the same bits."""
+    B = quantize.PLAN_ROWS + 3
+    rng = np.random.default_rng(11)
+    k, v, rings, scales = _rows_case(rng, B, 2, 2, 16, 5, "bf16", cuda)
+    pos = [int(p) for p in rng.integers(0, 12, B)]
+    n = [int(c) for c in rng.integers(0, 3, B)]
+    _check_rows_write(k, v, rings, scales, pos, n)
+
+
+def test_per_row_kv_write_at_the_engine_shapes(cuda):
+    """MiniCPM-2B's slot rows (36 K/V heads of head_dim 64, bf16): a decode
+    tick of 16 rows at mixed positions with inactive rows, and a prefill
+    chunk of one row that wraps the ring, its pads not written."""
+    rng = np.random.default_rng(12)
+    k, v, rings, scales = _rows_case(rng, 16, 1, 36, 64, 1024, "bf16", cuda)
+    pos = [0, 1023, 1024 + 5, 77] + [int(p) for p in rng.integers(0, 1024,
+                                                                   12)]
+    n = [1, 1, 1, 0] + [int(c) for c in rng.integers(0, 2, 12)]
+    _check_rows_write(k, v, rings, scales, pos, n)
+    k, v, rings, scales = _rows_case(rng, 1, 256, 36, 64, 1024, "bf16", cuda)
+    _check_rows_write(k, v, rings, scales, [900], [200])
 
 
 def test_launch_counters_count_only_launches(cuda):
@@ -344,6 +431,39 @@ def test_int8_decode_runs_the_kernels_and_matches_plain(cuda, monkeypatch):
     plain = serve.serve_loop(args, cfg, keep_logits=True)
     assert np.array_equal(run.tokens, plain.tokens)
     _assert_bitwise(run.logits, plain.logits)
+
+
+def test_engine_runs_the_per_row_write_and_matches_plain(cuda, monkeypatch):
+    """Reduced MiniCPM-2B with the int8 cache through the continuous engine
+    on the card (chunked prompts, more requests than slots): one per-row
+    write per layer for every decode tick and prefill chunk, two
+    dequantizes for each, and the streams those of the plain versions."""
+    from repro_torch.configs.base import decode_config, get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+    cfg = dataclasses.replace(
+        decode_config(get_config("minicpm_2b", reduced=True)), kv_quant=True)
+    params = tf.init_params(cfg, 0, cuda)
+
+    def run():
+        eng = ServingEngine(cfg, None, params, n_slots=3, max_len=64,
+                            prefill_chunk=16, device=cuda)
+        reqs = serve.synthetic_workload(6, cfg.vocab_size, gap=1, seed=1,
+                                        prompt_lens=(5, 40), max_new=(2, 6))
+        return eng.run(reqs)
+
+    before = (quantize.quantize_int8_into.launches,
+              quantize.dequantize_int8.launches)
+    got = run()
+    calls = cfg.n_layers * (got["decode_ticks"] + got["prefill_chunks"])
+    assert (quantize.quantize_int8_into.launches - before[0],
+            quantize.dequantize_int8.launches - before[1]) == \
+        (calls, 2 * calls)
+    monkeypatch.setattr(quantize, "quantize_int8_into",
+                        ref.quantize_int8_into_ref)
+    monkeypatch.setattr(quantize, "dequantize_int8", ref.dequantize_int8_ref)
+    assert run()["tokens"] == got["tokens"]
 
 
 # flash kernel vs plain: each output element against its own size plus its

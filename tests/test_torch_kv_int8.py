@@ -183,7 +183,7 @@ def test_fused_write_matches_the_references_cache_write(width, dt, slot):
     rings = [_rings(rng, B, S, KV, width) for _ in range(2)]
     tk, tv = (torch.from_numpy(q.copy()) for q, _ in rings)
     tks, tvs = (torch.from_numpy(sc.copy()) for _, sc in rings)
-    ops.kv_quantize_write(kt, vt, tk, tv, tks, tvs, at)
+    ops.kv_quantize_write(kt, vt, tk, tv, tks, tvs, [at] * B, [1] * B)
     write = jax.jit(ref_layers._cache_write)
     for (q0, s0), val, got_q, got_s, what in (
             (rings[0], kj, tk, tks, "K"), (rings[1], vj, tv, tvs, "V")):
@@ -200,32 +200,41 @@ def test_fused_write_refuses_what_the_kernel_does_not_take():
     ring = torch.zeros(2, 5, 3, 8, dtype=torch.int8)
     scale = torch.zeros(2, 5, 3, 1)
     before = quantize.quantize_int8_into.launches
-    for slot in (5, -1):
-        with pytest.raises(ValueError, match="does not fit"):
+    for pos, n in (([0, -1], [1, 1]),          # a negative position
+                   ([0, 0], [1, 2]),           # more tokens than the step
+                   ([0, 0], [-1, 1])):
+        with pytest.raises(ValueError, match="positions must be"):
             ops.kv_quantize_write(k, k, ring, ring.clone(), scale,
-                                  scale.clone(), slot)
-    with pytest.raises(ValueError, match="does not fit"):   # slot + T > S
-        ops.kv_quantize_write(torch.zeros(2, 2, 3, 8), torch.zeros(2, 2, 3, 8),
-                              ring, ring.clone(), scale, scale.clone(), 4)
+                                  scale.clone(), pos, n)
+    with pytest.raises(ValueError, match="takes 2 positions"):
+        ops.kv_quantize_write(k, k, ring, ring.clone(), scale,
+                              scale.clone(), [0], [1])
+    with pytest.raises(ValueError, match="positions must be"):  # T > S
+        ops.kv_quantize_write(torch.zeros(2, 6, 3, 8), torch.zeros(2, 6, 3, 8),
+                              ring, ring.clone(), scale, scale.clone(),
+                              [0, 0], [6, 6])
     wide = torch.zeros(2, 1, 3, 257)
     wring = torch.zeros(2, 5, 3, 257, dtype=torch.int8)
+    one = ([0, 0], [1, 1])
     with pytest.raises(ValueError, match="at most 256"):
         ops.kv_quantize_write(wide, wide, wring, wring.clone(), scale,
-                              scale.clone(), 0)
+                              scale.clone(), *one)
     with pytest.raises(ValueError, match="one"):      # K and V differ
         ops.kv_quantize_write(k, k.to(torch.bfloat16), ring, ring.clone(),
-                              scale, scale.clone(), 0)
+                              scale, scale.clone(), *one)
     with pytest.raises(TypeError):
         ops.kv_quantize_write(k.double(), k.double(), ring, ring.clone(),
-                              scale, scale.clone(), 0)
+                              scale, scale.clone(), *one)
     with pytest.raises(ValueError, match="v_ring"):    # a bf16 ring
         ops.kv_quantize_write(k, k, ring, ring.to(torch.bfloat16), scale,
-                              scale.clone(), 0)
+                              scale.clone(), *one)
     with pytest.raises(ValueError, match="k_scale"):
         ops.kv_quantize_write(k, k, ring, ring.clone(), scale[:, :4],
-                              scale.clone(), 0)
-    # the last slot fits; the CPU runs the plain version and counts nothing
+                              scale.clone(), *one)
+    # the last slot, and a position past it that wraps to slot 0; the CPU
+    # runs the plain version and counts nothing
     ops.kv_quantize_write(k + 1, k - 1, ring, ring.clone(), scale,
-                          scale.clone(), 4)
-    assert (ring[:, 4] == 127).all() and (ring[:, :4] == 0).all()
+                          scale.clone(), [4, 5], [1, 1])
+    assert (ring[0, 4] == 127).all() and (ring[0, :4] == 0).all()
+    assert (ring[1, 0] == 127).all() and (ring[1, 1:] == 0).all()
     assert quantize.quantize_int8_into.launches == before

@@ -309,9 +309,11 @@ def _record_quantize(monkeypatch):
     ratios = []
     real = ops.kv_quantize_write
 
-    def spy(k, v, cache_k, cache_v, scale_k, scale_v, slot):
-        real(k, v, cache_k, cache_v, scale_k, scale_v, slot)
-        end = slot + k.shape[1]
+    def spy(k, v, cache_k, cache_v, scale_k, scale_v, pos, n):
+        real(k, v, cache_k, cache_v, scale_k, scale_v, pos, n)
+        slot, end = pos[0], pos[0] + k.shape[1]
+        assert list(pos) == [slot] * len(pos) and end <= cache_k.shape[1]
+        assert list(n) == [k.shape[1]] * len(n)
         for x, s in ((k, scale_k), (v, scale_v)):
             ratios.append((x.to(torch.float32) / s[:, slot:end]).numpy())
 
@@ -418,7 +420,7 @@ def test_serve_cli_runs_and_refuses_unported_flags(capsys):
                       "--batch", "2", "--steps", "3", "--cache-len", "8"])
     assert run.tokens.shape == (2, 3) and len(run.step_seconds) == 3
     assert "decoded 6 tokens" in capsys.readouterr().out
-    for flag in ("--continuous", "--mesh=1x2", "--trace-out"):
+    for flag in ("--speculate", "--mesh=1x2", "--trace-out"):
         with pytest.raises(SystemExit) as e:
             serve.main(["--reduced", "--device", "cpu", flag])
         assert e.value.code == 2
@@ -437,9 +439,12 @@ def test_serving_needs_a_device_or_the_cpu_by_name():
 
 
 def test_make_serve_step_refuses_unported_modes():
-    with pytest.raises(NotImplementedError, match="continuous engine"):
+    with pytest.raises(NotImplementedError, match="tooling and benches"):
+        step_fns.make_prefill_step(base.get_config("minicpm_2b", True),
+                                   into_slots=False)
+    with pytest.raises(NotImplementedError, match="dist transport"):
         step_fns.make_serve_step(base.get_config("minicpm_2b", True),
-                                 slots=True)
+                                 base.ParallelConfig(tp_shards=2), slots=True)
     with pytest.raises(NotImplementedError, match="dist transport"):
         step_fns.make_serve_step(base.get_config("minicpm_2b", True),
                                  base.ParallelConfig(tp_shards=2))
