@@ -32,9 +32,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 5. the serving main path at full width: MiniCPM-2B (40 layers, d_model
    2304, 36 heads, 36 K/V heads, vocab 122,753) with bf16 weights and the
    int8 K/V cache, through the port's ``serve_loop``: batch 16, a ring of
-   8192, 32 greedy steps, one fused K/V quantize launch per layer and step,
+   8192, 32 greedy steps, one fused K/V quantize launch and one ring
+   attention per layer and step,
    its tokens and logits bitwise equal to the same run with the plain int8
-   versions, one step traced (device operations per step), and a reduced
+   versions; the same run with the plain ring attention in place of the
+   kernel, its logits within ``LOGIT_TOL`` of the largest and its tokens
+   equal wherever the plain run's top-2 margin exceeds twice that, and a
+   run with an off-by-one ring attention (it skips the key just written)
+   that must break that limit; one step traced (device operations per
+   step), and a reduced
    MiniCPM-2B on the card
    within bf16 tolerance of the port on the CPU (which the CPU tests hold
    against the JAX package);
@@ -86,10 +92,38 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    over 8 replicas stacked on the card (b = 1: the ring, then the
    dual-root tree), equal to numpy's sum; ticks, wall, tokens/s, TTFT and
    latency, the median decode tick and prefill chunk, the peak memory, the
-   phase's seconds, and one prefill chunk traced.
+   phase's seconds, and one prefill chunk traced;
+10. speculation, the prefix cache and the SLO policy at full width, on
+   phase 9's weights: ``ServingEngine`` with 8 slots of a 4096 ring,
+   prefill chunks of 512 and a prefix trie of 16 nodes: first the slot
+   attention kernel ``ring_attention`` (which replaces no TPU kernel: it
+   stands where the reference's einsums do, and gives a query the same bits
+   in any call) against its plain version within ``FLASH_TOL``, bitwise the
+   same for a query in calls of 1, 5 and 40, and held and timed at a decode
+   tick's, a verify tick's and a prefill chunk's shape, at phase 5's step
+   and at phase 9's tick and chunk, beside its bound, its plain version
+   and SDPA; then serving workload
+   W10 (12 requests a tick apart, a shared 1024-token system prompt and a
+   repetitive suffix of 64 to 448 tokens, 16 to 32 new tokens, requests 0-7
+   BATCH and 8-11 INTERACTIVE with a TTFT deadline of 8 ticks): the fused
+   K/V write at the verify shape (8 rows of 5 tokens, counts 0 to 5, two
+   rows wrapping) bitwise against its plain version and timed beside its
+   byte bound; run A (FIFO, greedy, plain); B with n-gram speculation
+   (k = 4), its streams bitwise A's in no more ticks, one fused write per
+   layer for every decode or verify tick and prefill chunk and two
+   dequantizes for each; C with the prefix cache (at least 10 hits, fewer
+   chunks than A); D under the SLO policy with speculation and the prefix
+   cache (at least one preemption, the interactive requests' TTFT p50 at
+   most A's); E, A and B sampled, equal; F drafting with the same widths
+   cut to 2 layers (seed 7, its own 8 slots) for requests 0-3; each
+   stream bitwise A's; and B again with its decode and verify calls timed
+   and, on a verify tick that rejects a draft, the rejected tokens' ring
+   slots bitwise their bytes before the call; each run's ticks, wall,
+   tokens/s and TTFT, the peak memory and the phase's seconds.
 
-In phases 3, 5, 7, 8 and 9 the kernels' launch counters are zeroed just before the
-main path and read just after, and must show that the kernels carried it.
+In phases 3, 5, 7, 8, 9 and 10 the kernels' launch counters are zeroed just
+before the main path and read just after, and must show that the kernels
+carried it.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
 raises before that line. Without a CUDA device it exits nonzero and prints
@@ -128,9 +162,13 @@ from repro_torch.data import threefry  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, block_combine, quantize, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ring_attention  # noqa: E402
 from repro_torch.launch import serve, step_fns, train  # noqa: E402
-from repro_torch.serving import (SamplingParams, ServingEngine,  # noqa: E402
-                                 STATS_FIELDS, make_stats_reducer)
+from repro_torch.serving import (DraftModelDrafter,  # noqa: E402
+                                 PriorityClass, SamplingParams,
+                                 ServingEngine, SLOParams, SpecParams,
+                                 STATS_FIELDS, make_policy,
+                                 make_stats_reducer)
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.runtime import fault_tolerance  # noqa: E402
@@ -163,6 +201,10 @@ KERNEL_FILES = {
                         "src/repro/kernels/quantize.py:41"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:30"),
+    # no TPU kernel: it stands where the reference's two XLA einsums of
+    # attention_decode_slots do (layers.py:589-593)
+    "ring_attention": ("src/repro_torch/kernels/csrc/ring_attention.cu",
+                       "src/repro/models/layers.py:589"),
 }
 WRAPPERS = {"combine2": block_combine.combine2,
             "combine3": block_combine.combine3,
@@ -171,7 +213,8 @@ WRAPPERS = {"combine2": block_combine.combine2,
             "quantize_int8": quantize.quantize_int8,
             "quantize_int8_into": quantize.quantize_int8_into,
             "dequantize_int8": quantize.dequantize_int8,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "ring_attention": ring_attention.ring_attention}
 # phase 5: MiniCPM-2B decode, cut from the reference's decode_32k cell
 # (batch 128, 32,768 cached tokens) to what one 80 GB card holds
 DECODE = dict(arch="minicpm_2b", batch=16, cache_len=8192, steps=32, seed=0)
@@ -181,6 +224,18 @@ SERVE = dict(arch="minicpm_2b", slots=16, cache_len=8192, prefill_chunk=1024,
              requests=24, gap=1, prompt_lens=(256, 2560), max_new=(8, 32),
              seed=0)
 SAMPLED = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=0)
+# phase 10: speculation, the prefix cache and the SLO policy on phase 9's
+# model, cut to 8 slots of a 4096 ring (a tick dequantizes a quarter of
+# phase 9's ring). W10: a shared system prompt of two 512-token chunks and
+# a repetitive suffix (a cold prompt is 3 chunks, a warm one 1); requests
+# 0-7 BATCH, 8-11 INTERACTIVE with a TTFT deadline, arriving while every
+# slot is busy. Run F drafts with the same widths cut to 2 layers. New
+# tokens are cut from 32-64 to 16-32 to keep the phase under 90 s (its
+# ticks are bound by the host's launches at this size; PERF.md section 6).
+SPEC = dict(slots=8, cache_len=4096, prefill_chunk=512, prefix_nodes=16,
+            requests=12, gap=1, seed=1, shared_prefix=1024,
+            suffix=(64, 448), max_new=(16, 32), batch=8, deadline_ticks=8,
+            draft_k=4, draft_layers=2, draft_seed=7, draft_requests=4)
 # phase 7: MiniCPM-2B training, cut from the reference's train_4k cell
 # (seq 4096, global batch 256) to the batch one 80 GB card holds
 TRAIN = dict(arch="minicpm_2b", seq_len=4096, global_batch=4, accum=1,
@@ -210,6 +265,12 @@ INIT_ULP = 2
 # within 2**-8 (the CPU tests' bound against the JAX package)
 TRAIN_TOL = {"loss": 5e-4, "grad_norm": 2.5e-3}
 REDUCED_TOL = 2.0 ** -8
+# greedy decode logits of two runs that round attention differently (the
+# ring kernel against its plain version; the card against the CPU): within
+# LOGIT_TOL of the largest logit, the bf16 bound the CPU tests hold the port
+# to against the JAX package, and the same token wherever the top-2 margin
+# exceeds twice that, over the steps fed the same tokens
+LOGIT_TOL = 6 * 2.0 ** -8
 U = 2.0 ** -24                       # f32 unit roundoff
 # bf16 bit patterns for the head of every max/min operand: +0, -0, quiet and
 # signalling NaNs of both signs, +inf, -inf, 1. Each NaN's payload names
@@ -417,6 +478,28 @@ def plain_int8():
     finally:
         (quantize.quantize_int8, quantize.quantize_int8_into,
          quantize.dequantize_int8) = saved
+
+
+@contextlib.contextmanager
+def plain_ring(fn=ref.ring_attention_ref):
+    """Run the slot and decode attention with ``fn`` (the plain version by
+    default) in place of the ring kernel (the layers look the wrapper up
+    at each call)."""
+    saved = ring_attention.ring_attention
+    ring_attention.ring_attention = fn
+    try:
+        yield
+    finally:
+        ring_attention.ring_attention = saved
+
+
+def ring_off_by_one(q, k, v, plan, window=None, chunk=None):
+    """A wrong ring attention for the decode check: the plain version told
+    that one token fewer was written, so each query skips the key just
+    written (a query with nothing to read averages V)."""
+    return ref.ring_attention_ref(q, k, v, torch.stack([plan[0],
+                                                        plan[1] - 1]),
+                                  window, chunk)
 
 
 @contextlib.contextmanager
@@ -1612,13 +1695,14 @@ def decode_phase(dev) -> dict:
     torch.cuda.synchronize()
     launches = counters()
     peak = torch.cuda.max_memory_allocated()
-    want = (L * steps, 0, 2 * L * steps)
+    want = (L * steps, 0, 2 * L * steps, L * steps)
     if (launches["quantize_int8_into"], launches["quantize_int8"],
-            launches["dequantize_int8"]) != want:
+            launches["dequantize_int8"], launches["ring_attention"]) != want:
         raise AssertionError(f"decode launches {launches}: want {want[0]} "
                              "fused K/V writes (every layer, every step), "
-                             f"no separate quantize and {want[2]} "
-                             "dequantizes (K and V)")
+                             f"no separate quantize, {want[2]} "
+                             f"dequantizes (K and V) and {want[3]} ring "
+                             "attentions")
     logits = run.logits
     if logits.shape != (steps, B, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
@@ -1630,6 +1714,21 @@ def decode_phase(dev) -> dict:
         raise AssertionError("decode tokens differ from the plain int8 run")
     check_bitwise(logits, plain.logits, "decode logits vs the plain int8 run")
     del plain
+    with plain_ring():
+        plain = serve.serve_loop(args, cfg, params, keep_logits=True)
+    with plain_ring(ring_off_by_one):
+        wrong = serve.serve_loop(args, cfg, params, keep_logits=True)
+    ring_gap, wrong_gap = (greedy_gap(r, plain, LOGIT_TOL)
+                           for r in (run, wrong))
+    del plain, wrong
+    if ring_gap["wrong_tokens"] or not ring_gap["err_share"] <= LOGIT_TOL:
+        raise AssertionError(f"decode with the ring kernel against its "
+                             f"plain version: {ring_gap}, limit "
+                             f"{LOGIT_TOL:.3e} of max|logit|")
+    if not wrong_gap["err_share"] > LOGIT_TOL:
+        raise AssertionError(f"an off-by-one ring attention reads "
+                             f"{wrong_gap}: within the limit "
+                             f"{LOGIT_TOL:.3e}, which would not catch it")
     secs = run.step_seconds
     steady = float(np.median(secs[1:]))
     res = {"params": n_params, "int8_ring_bytes": ring_bytes,
@@ -1643,6 +1742,15 @@ def decode_phase(dev) -> dict:
         f"{res['tokens_per_s']:.1f} tok/s ({res['steady_tokens_per_s']:.1f} "
         f"steady), peak memory {peak / 1e9:.2f} GB, launches {launches}")
     log("  decode: tokens and logits bitwise equal to the plain int8 run")
+    log(f"  decode, ring kernel vs its plain version: logit error "
+        f"{ring_gap['err_share']:.3e} of max|logit| (limit "
+        f"{LOGIT_TOL:.3e}) over {ring_gap['steps']} steps fed the same "
+        f"tokens, {ring_gap['clear_tokens']} clear-margin tokens equal, "
+        f"tokens all equal: {ring_gap['same_tokens']}; an off-by-one ring "
+        f"attention reads {wrong_gap['err_share']:.3e} "
+        f"({wrong_gap['wrong_tokens']} clear-margin tokens differ)")
+    res["ring_vs_plain"] = ring_gap
+    res["off_by_one_vs_plain"] = wrong_gap
     del run, logits
     # one step traced, on a fresh ring after a warm-up step
     step = step_fns.make_serve_step(cfg)
@@ -1667,12 +1775,32 @@ def _leaves(tree):
     return [tree]
 
 
+def greedy_gap(got, want, tol: float) -> dict:
+    """Two greedy ``serve_loop`` runs (``keep_logits``) on the same params:
+    the largest |got - want| over max |want| of each step's logits, over the
+    steps fed the same tokens, and the tokens that differ there where
+    ``want``'s top-2 margin exceeds twice ``tol`` of max |want|."""
+    parted = np.nonzero((got.tokens != want.tokens).any(0))[0]
+    steps = int(parted[0]) + 1 if len(parted) else want.tokens.shape[1]
+    worst, clear_n, wrong = 0.0, 0, 0
+    for i in range(steps):
+        b = want.logits[i].double()
+        a = got.logits[i].to(b.device).double()
+        top = float(b.abs().max())
+        worst = max(worst, float((a - b).abs().max()) / top)
+        top2 = torch.topk(b, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol * top
+        wrong += int((a.argmax(-1) != b.argmax(-1))[clear].sum())
+        clear_n += int(clear.sum())
+    return {"err_share": worst, "steps": steps, "clear_tokens": clear_n,
+            "wrong_tokens": wrong,
+            "same_tokens": bool(np.array_equal(got.tokens, want.tokens))}
+
+
 def reduced_check(dev) -> dict:
     """Reduced MiniCPM-2B with the int8 cache on the card against the port
-    on the CPU, the same params: logits within 6 * 2**-8 of the largest
-    (the bf16 tolerance the CPU tests hold the port to against the JAX
-    package), and the same greedy token wherever the CPU's top-2 margin
-    exceeds twice that, over the steps whose inputs were still equal."""
+    on the CPU, the same params: :func:`greedy_gap` within
+    ``LOGIT_TOL``."""
     cfg = dataclasses.replace(
         decode_config(get_config(DECODE["arch"], reduced=True)),
         kv_quant=True)
@@ -1685,28 +1813,16 @@ def reduced_check(dev) -> dict:
         raise AssertionError("the reduced run did not launch the kernels")
     host = serve.serve_loop(serve_args(**small, device="cpu"), cfg, cpu,
                             keep_logits=True)
-    tol = 6 * 2.0 ** -8
-    parted = np.nonzero((card.tokens != host.tokens).any(0))[0]
-    last = int(parted[0]) if len(parted) else small["steps"] - 1
-    worst, compared = 0.0, 0
-    for i in range(last + 1):          # steps fed the same tokens
-        a = card.logits[i].cpu().numpy()
-        b = host.logits[i].numpy()
-        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
-        top2 = np.sort(b, -1)[:, -2:]
-        clear = (top2[:, 1] - top2[:, 0]) > 2 * tol * np.abs(b).max()
-        if not np.array_equal(a.argmax(-1)[clear], b.argmax(-1)[clear]):
-            raise AssertionError(f"reduced step {i}: tokens differ at a "
-                                 "clear margin")
-        compared += int(clear.sum())
-    if not worst <= tol:
-        raise AssertionError(f"reduced card vs CPU: error {worst:.3e} of "
-                             f"max|logit| > {tol:.3e}")
-    log(f"  reduced {cfg.name} int8, card vs CPU: max error {worst:.2e} of "
-        f"max|logit| (limit {tol:.2e}) over {last + 1} steps fed the same "
-        f"tokens; {compared} clear-margin tokens equal")
-    return {"max_err_share": worst, "steps_compared": last + 1,
-            "tokens_compared": compared}
+    gap = greedy_gap(card, host, LOGIT_TOL)
+    if gap["wrong_tokens"] or not gap["err_share"] <= LOGIT_TOL:
+        raise AssertionError(f"reduced card vs CPU: {gap}, limit "
+                             f"{LOGIT_TOL:.3e} of max|logit|")
+    log(f"  reduced {cfg.name} int8, card vs CPU: max error "
+        f"{gap['err_share']:.2e} of max|logit| (limit {LOGIT_TOL:.2e}) over "
+        f"{gap['steps']} steps fed the same tokens; {gap['clear_tokens']} "
+        "clear-margin tokens equal")
+    return {"max_err_share": gap["err_share"], "steps_compared": gap["steps"],
+            "tokens_compared": gap["clear_tokens"]}
 
 
 def _to(tree, dev):
@@ -1822,10 +1938,16 @@ def workload(vocab: int, sampling=None) -> list:
         sampling=sampling)
 
 
-def continuous_phase(dev) -> dict:
+def serve_model(dev):
+    """Phases 9 and 10's model: MiniCPM-2B's decode config (bf16 weights,
+    the int8 K/V cache), weights from ``SERVE["seed"]``, drawn once."""
     cfg = decode_config(get_config(SERVE["arch"]))
     if not cfg.kv_quant:
         raise AssertionError("MiniCPM-2B's decode config has no int8 cache")
+    return cfg, tf.init_params(cfg, SERVE["seed"], dev)
+
+
+def continuous_phase(dev, cfg, params) -> dict:
     res = {"slot_write": slot_write_shapes(dev)}
     torch.cuda.empty_cache()
     L = cfg.n_layers
@@ -1835,7 +1957,6 @@ def continuous_phase(dev) -> dict:
         f"{SERVE['prefill_chunk']}; {SERVE['requests']} requests a tick "
         f"apart, prompts {SERVE['prompt_lens']}, new tokens "
         f"{SERVE['max_new']}")
-    params = tf.init_params(cfg, SERVE["seed"], dev)
     engine = ServingEngine(cfg, None, params, n_slots=SERVE["slots"],
                            max_len=SERVE["cache_len"],
                            prefill_chunk=SERVE["prefill_chunk"], device=dev)
@@ -1851,7 +1972,7 @@ def continuous_phase(dev) -> dict:
     peak = torch.cuda.max_memory_allocated()
     calls = L * (greedy["decode_ticks"] + greedy["prefill_chunks"])
     want = {"quantize_int8_into": calls, "dequantize_int8": 2 * calls,
-            "quantize_int8": 0}
+            "ring_attention": calls, "quantize_int8": 0}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"continuous launches {launches}: want {want} "
                              f"({greedy['decode_ticks']} decode ticks and "
@@ -1924,7 +2045,7 @@ def continuous_phase(dev) -> dict:
     trace = device_breakdown(lambda: engine._prefill(
         params, chunk, session.caches, 0, chunk.shape[1]), top=10)
     log(f"  prefill chunk traced: {json.dumps(trace)}")
-    del engine, params, session
+    del engine, session
     torch.cuda.empty_cache()
     res.update({
         "launches": launches, "max_memory_bytes": peak,
@@ -1944,6 +2065,482 @@ def continuous_phase(dev) -> dict:
         "sampled_wall_s": [r["wall_s"] for r in sampled],
         "stats_reduce_combine3_launches": reduce_launches,
         "prefill_chunk_trace": trace})
+    return res
+
+
+# ------------------------------------------- speculation, prefixes, policies
+
+def w10(vocab: int, sampling=None, spec=None, n=None) -> list:
+    """Workload W10: ``SPEC["requests"]`` requests a tick apart, each the
+    shared system prompt and a repetitive suffix; the first
+    ``SPEC["batch"]`` BATCH (preemptible), the rest INTERACTIVE with a TTFT
+    deadline."""
+    reqs = serve.synthetic_workload(
+        SPEC["requests"], vocab, gap=SPEC["gap"], seed=SPEC["seed"],
+        prompt_lens=SPEC["suffix"], max_new=SPEC["max_new"],
+        sampling=sampling, spec=spec, repetitive=True,
+        shared_prefix=SPEC["shared_prefix"])
+    for r in reqs:
+        r.slo = (SLOParams(priority=PriorityClass.BATCH)
+                 if r.rid < SPEC["batch"] else
+                 SLOParams(priority=PriorityClass.INTERACTIVE,
+                           deadline_ticks=SPEC["deadline_ticks"]))
+    return reqs[:n]
+
+
+def spec_engine(cfg, params, dev, **kw) -> ServingEngine:
+    return ServingEngine(cfg, None, params, n_slots=SPEC["slots"],
+                         max_len=SPEC["cache_len"],
+                         prefill_chunk=SPEC["prefill_chunk"],
+                         prefix_cache_nodes=SPEC["prefix_nodes"],
+                         device=dev, **kw)
+
+
+def run_line(name: str, rep: dict, reqs) -> dict:
+    """One run's numbers (ticks, wall, tokens/s, TTFT in ticks), logged."""
+    late = [r.ttft for r in reqs if r.rid >= SPEC["batch"]]
+    out = {"ticks": rep["ticks"], "decode_ticks": rep["decode_ticks"],
+           "verify_ticks": rep["verify_ticks"],
+           "prefill_chunks": rep["prefill_chunks"],
+           "total_tokens": rep["total_tokens"], "wall_s": rep["wall_s"],
+           "tokens_per_s": rep["tok_s"],
+           "ttft_ticks_p50": rep["ttft_ticks_p50"],
+           "ttft_ticks_p95": rep["ttft_ticks_p95"],
+           "interactive_ttft_ticks_p50": (float(np.median(late)) if late
+                                          else float("nan"))}
+    log(f"  {name}: {rep['ticks']} ticks ({rep['decode_ticks']} decode, "
+        f"{rep['verify_ticks']} verify, {rep['prefill_chunks']} prefill "
+        f"chunks), {rep['total_tokens']} tokens in {rep['wall_s']:.3f} s, "
+        f"{rep['tok_s']:.2f} tok/s; TTFT p50/p95 {rep['ttft_ticks_p50']}/"
+        f"{rep['ttft_ticks_p95']} ticks (interactive p50 "
+        f"{out['interactive_ttft_ticks_p50']})")
+    return out
+
+
+def same_streams(got: dict, want: dict, what: str) -> None:
+    if got["tokens"] != {r: t for r, t in want["tokens"].items()
+                         if r in got["tokens"]}:
+        raise AssertionError(f"{what}: streams differ from run A's")
+
+
+def ring_cases(gen, B, T, H, KV, D, S, dt, dev):
+    """q (B, T, H, D) and rings (B, S, KV, D) of ``dt``, random."""
+    q = torch.randn((B, T, H, D), generator=gen, device=dev).to(dt)
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    return q, k, v
+
+
+def ring_valid(plan, T: int, S: int, window, chunk) -> torch.Tensor:
+    """(B, T) bools: the queries that have a position to read (the
+    kernel writes zeros for the others, the plain version averages V)."""
+    pos, n = plan[0].cpu(), plan[1].cpu()
+    qp = pos[:, None] + torch.arange(T)[None]
+    last = (pos + n - 1)[:, None]
+    lo = torch.clamp(last - S + 1, min=0).expand_as(qp).clone()
+    if window is not None:
+        lo = torch.maximum(lo, qp - window + 1)
+    if chunk is not None:
+        lo = torch.maximum(lo, qp // chunk * chunk)
+    return torch.minimum(qp, last) >= lo
+
+
+def ring_err(got, want, keep) -> float:
+    """The largest |got - want| / (|want| + max |want| over the query's
+    head_dim) over the queries in ``keep``: the flash kernel's rule."""
+    g, w = got.double()[keep], want.double()[keep]
+    if not g.numel():
+        return 0.0
+    scale = w.abs() + w.abs().amax(-1, keepdim=True)
+    return float(((g - w).abs() / scale.clamp_min(1e-300)).max())
+
+
+def ring_attention_phase(dev) -> dict:
+    """The slot attention kernel against its plain version (each output
+    element within ``FLASH_TOL`` of its size plus its row's largest, over
+    the queries that have a position to read), over dtypes, head_dims 12,
+    64 and 128, 1 and 2 query heads per K/V head, windows and chunks,
+    wrapped rings and an inactive row; the same queries in one call of 5
+    and five calls of 1 and in a call of 40, bitwise equal; then timed at
+    the paths' shapes (a decode tick, a verify tick, a prefill chunk; phase
+    5's step; phase 9's decode tick and chunk) beside its bound, the plain
+    version and SDPA on the same inputs."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst = {dt: 0.0 for dt in fa.FLASH_TOL}
+    checks = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for D in (12, 64, 128):
+            for rep in (1, 2):
+                for window, chunk in ((None, None), (8, None), (None, 16)):
+                    for T in (1, 5, 33):
+                        S = 64 if window is None else max(T, 8 + 5)
+                        q, k, v = ring_cases(gen, 3, T, 2 * rep, 2, D, S,
+                                             dt, dev)
+                        plan = torch.tensor([[0, 70, 30], [T, T, 0]],
+                                            device=dev)
+                        keep = ring_valid(plan, T, S, window, chunk)
+                        got = ring_attention.ring_attention(
+                            q, k, v, plan, window, chunk)
+                        want = ref.ring_attention_ref(q, k, v, plan, window,
+                                                      chunk)
+                        err = ring_err(got, want, keep)
+                        if not err <= fa.FLASH_TOL[dt]:
+                            raise AssertionError(
+                                f"ring_attention {dt} D={D} rep={rep} "
+                                f"window={window} chunk={chunk} T={T}: "
+                                f"error {err:.3e} > {fa.FLASH_TOL[dt]:.1e}")
+                        worst[dt] = max(worst[dt], err)
+                        checks += 1
+    # one query's bits in any call
+    q, k, v = ring_cases(gen, 8, 40, 36, 36, 64, 4096, torch.bfloat16, dev)
+    pos = torch.tensor([0, 17, 1000, 1500, 2047, 3000, 4000, 33], device=dev)
+    five = ring_attention.ring_attention(
+        q[:, :5].contiguous(), k, v, torch.stack([pos, torch.full_like(
+            pos, 5)]))
+    forty = ring_attention.ring_attention(
+        q, k, v, torch.stack([pos, torch.full_like(pos, 40)]))
+    for t in range(5):
+        one = ring_attention.ring_attention(
+            q[:, t:t + 1].contiguous(), k, v,
+            torch.stack([pos + t, torch.ones_like(pos)]))
+        check_bitwise(one[:, 0], five[:, t], f"ring_attention query {t}, "
+                      "a call of 1 against a call of 5")
+        check_bitwise(one[:, 0], forty[:, t], f"ring_attention query {t}, "
+                      "a call of 1 against a call of 40")
+    log(f"  ring_attention: {checks} cases within tolerance of the plain "
+        "version (worst " + ", ".join(f"{str(dt)[6:]} {w:.2e}"
+                                       for dt, w in worst.items())
+        + "); a query's output bitwise the same in calls of 1, 5 and 40")
+    del q, k, v, five, forty, one
+    cfg = get_config(SERVE["arch"])
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+    spec_pos = [1400, 1100, 1300, 1250, 1200, 1350, 1150, 1450]
+    # (rows, queries, ring, start positions): phase 10's verify and decode
+    # ticks and chunk; phase 5's last step; phase 9's decode tick (16 slots
+    # at prompt lengths of 256 to 2560) and a 1024-token chunk
+    shapes = {
+        "verify": (SPEC["slots"], SPEC["draft_k"] + 1, SPEC["cache_len"],
+                   spec_pos),
+        "decode": (SPEC["slots"], 1, SPEC["cache_len"], spec_pos),
+        "prefill": (1, SPEC["prefill_chunk"], SPEC["cache_len"],
+                    [2 * SPEC["prefill_chunk"]]),
+        "decode_phase5": (DECODE["batch"], 1, DECODE["cache_len"],
+                          [DECODE["steps"] - 1] * DECODE["batch"]),
+        "decode_phase9": (SERVE["slots"], 1, SERVE["cache_len"],
+                          [300, 2580, 1200, 900, 2000, 1700, 450, 2300, 800,
+                           1500, 2550, 600, 1900, 1100, 350, 2200]),
+        "prefill_phase9": (1, SERVE["prefill_chunk"], SERVE["cache_len"],
+                           [SERVE["prefill_chunk"]]),
+    }
+    out = {}
+    for what, (B, T, S, pos) in shapes.items():
+        q, k, v = ring_cases(gen, B, T, H, KV, D, S, torch.bfloat16, dev)
+        plan = torch.tensor([pos, [T] * B], device=dev)
+        keep = ring_valid(plan, T, S, None, None)
+        got = ring_attention.ring_attention(q, k, v, plan)
+        want = ref.ring_attention_ref(q, k, v, plan)
+        err = ring_err(got, want, keep)
+        if not err <= fa.FLASH_TOL[torch.bfloat16]:
+            raise AssertionError(f"ring_attention at the {what} shape: error "
+                                 f"{err:.3e}")
+        abs_err = max_abs_err(got, want)
+        # SDPA on the same inputs, laid out (B, H, T, D) beforehand
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        qp = plan[0][:, None] + torch.arange(T, device=dev)[None]
+        mask = (torch.arange(S, device=dev)[None, None] <= qp[..., None])
+        mask = mask[:, None]                      # (B, 1, T, S); no wrap
+        t_k = time_ms(lambda: ring_attention.ring_attention(q, k, v, plan))
+        t_l = time_ms(lambda: torch.nn.functional
+                      .scaled_dot_product_attention(qt, kt, vt,
+                                                    attn_mask=mask))
+        t_p = time_ms(lambda: ref.ring_attention_ref(q, k, v, plan), reps=5)
+        reads = sum(min(p + T, S) for p in pos)     # valid rows per batch row
+        nbytes = 2 * (q.numel() * 2) + 2 * reads * KV * D * 2
+        nops = 4 * D * H * int(sum(min(p + t + 1, S) for p in pos
+                                   for t in range(T)))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        # bf16 products summed in f32: the dense bf16 tensor-core rate
+        t_ops = nops / (BF16_TC_OPS_PER_S if q.dtype == torch.bfloat16
+                        else F32_OPS_PER_S) * 1e3
+        out[what] = {"shape": [list(q.shape), list(k.shape)], "pos": pos,
+                     "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes, "ops": nops,
+                     "err_share": err, "max_abs_err": abs_err}
+        log(f"  ring_attention {what} {out[what]['shape']}: kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, SDPA {t_l:.4f} ms, bound "
+            f"{out[what]['bound_ms']:.4f} ms ({out[what]['bound_by']}); "
+            f"error {err:.2e} of |want| + row max")
+        del q, k, v, qt, kt, vt, got, want
+    src, replaces = KERNEL_FILES["ring_attention"]
+    head = out["verify"]
+    return {"name": "ring_attention", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max(o["max_abs_err"] for o in out.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["shape"],
+            "checks": checks, "worst_err_share": {
+                str(dt)[6:]: w for dt, w in worst.items()}, "shapes": out}
+
+
+def verify_write_shape(dev) -> dict:
+    """The fused K/V write at a verify tick's shape: two (8, 5, 36, 64)
+    bf16 sources into (8, 4096, 36, 64) rings, rows at mixed positions
+    writing 0, 1, 3 or 5 tokens, two near the ring's end so their writes
+    wrap; bitwise against its plain version, timed by device time per
+    launch beside its byte bound."""
+    cfg = get_config(SERVE["arch"])
+    KV, W, S, B = cfg.n_kv_heads, cfg.hdim, SPEC["cache_len"], SPEC["slots"]
+    T = SPEC["draft_k"] + 1
+    gen = torch.Generator(device=dev).manual_seed(10)
+    pos = [0, S - 2, 100, S // 2 - 1, S - 1, 777, 3 * S // 4, 12]
+    n = [1, 5, 0, 3, 5, 1, 3, 0]
+    k, v, bufs = slot_write_case(gen, B, T, KV, W, S, dev)
+    got = [t.clone() for t in bufs]
+    want = [t.clone() for t in bufs]
+    quantize.quantize_int8_into(k, v, *got, pos, n)
+    ref.quantize_int8_into_ref(k, v, *want, pos, n)
+    err = 0.0
+    for g, w, name in zip(got, want, ("K ring", "V ring", "K scales",
+                                      "V scales")):
+        check_bitwise(g, w, f"quantize_int8_into verify {name}")
+        err = max(err, max_abs_err(g.float(), w.float()))
+    del got, want
+    tokens = sum(n)
+    nbytes = 2 * tokens * KV * (2 * W + W + 4)
+    nops = 2 * 4 * tokens * KV * W
+    t_dev = device_ms(lambda: quantize.quantize_int8_into(k, v, *bufs, pos,
+                                                           n))
+    t_host = host_ms(lambda: quantize.quantize_int8_into(k, v, *bufs, pos,
+                                                          n))
+    t_plain = time_ms(lambda: ref.quantize_int8_into_ref(k, v, *bufs, pos,
+                                                          n), reps=10)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    out = {"shape": [list(k.shape), list(bufs[0].shape)], "pos": pos,
+           "n": n, "tokens_written": tokens, "device_ms": t_dev,
+           "host_ms": t_host, "plain_ms": t_plain,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "max_abs_err": err}
+    log(f"  quantize_int8_into verify {out['shape']}, {tokens} tokens "
+        f"written: device {t_dev:.4f} ms a launch, host {t_host:.4f} ms a "
+        f"call, plain {t_plain:.4f} ms, bound {out['bound_ms']:.7f} ms "
+        f"({out['bound_by']}, {nbytes} bytes); bitwise its plain version")
+    return out
+
+
+@contextlib.contextmanager
+def timed_ticks(engine, times: dict, rollback: dict):
+    """Time each decode and verify call on the host clock (the card
+    synchronized before and after), and on the first verify call that
+    rejects a draft, hold every rejected token's ring slots (int8 codes
+    and scales, every layer) bitwise to their bytes before the call, read
+    by plain indexing before it."""
+    decode, get_verify = engine._decode, engine._get_verify
+
+    def timed_decode(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(*a, **kw)
+        torch.cuda.synchronize()
+        times["decode"].append(time.perf_counter() - t0)
+        return out
+
+    def checked_verify(k):
+        step = get_verify(k)
+
+        def call(params, tokens, caches, active, n_draft, sampling=None):
+            snap = []
+            if not rollback["checked"]:
+                for ci, c in enumerate(caches):
+                    S = c["k"].shape[2]
+                    for b in np.flatnonzero(active):
+                        slots = [(int(c["pos"][0, b]) + t) % S
+                                 for t in range(int(n_draft[b]) + 1)]
+                        snap.append((ci, int(b), slots, {
+                            name: c[name][:, b, slots].clone()
+                            for name in ("k", "v", "ks", "vs")}))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, tokens, caches, active, n_draft, sampling)
+            torch.cuda.synchronize()
+            times["verify"].append(time.perf_counter() - t0)
+            acc, new = out[1], out[2]
+            checked = 0
+            for ci, b, slots, old in snap:
+                a = int(acc[b])
+                for name, vals in old.items():
+                    check_bitwise(new[ci][name][:, b, slots[a:]],
+                                  vals[:, a:],
+                                  f"verify rollback, slot {b}, {name}")
+                    checked += (len(slots) - a) * vals.shape[0]
+            if checked:
+                rollback.update(checked=True, slots_checked=checked,
+                                tick=len(times["verify"]))
+            return out
+        return call
+
+    engine._decode = timed_decode
+    engine._get_verify = checked_verify
+    try:
+        yield
+    finally:
+        engine._decode, engine._get_verify = decode, get_verify
+
+
+def spec_phase(dev, cfg, params) -> dict:
+    L = cfg.n_layers
+    log(f"  {cfg.name}: {SPEC['slots']} slots, ring {SPEC['cache_len']}, "
+        f"prefill chunk {SPEC['prefill_chunk']}, prefix trie of "
+        f"{SPEC['prefix_nodes']} nodes; W10: {SPEC['requests']} requests a "
+        f"tick apart, a shared prefix of {SPEC['shared_prefix']} tokens and "
+        f"a repetitive suffix of {SPEC['suffix']}, new tokens "
+        f"{SPEC['max_new']}, requests {SPEC['batch']}.. INTERACTIVE with a "
+        f"deadline of {SPEC['deadline_ticks']} ticks")
+    res = {"verify_write": verify_write_shape(dev),
+           "ring_attention": ring_attention_phase(dev)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vocab = cfg.vocab_size
+    spec = SpecParams(draft_k=SPEC["draft_k"])
+    runs = {}
+    # A, the baseline
+    reqs = w10(vocab)
+    a = spec_engine(cfg, params, dev).run(reqs)
+    runs["A"] = run_line("A (FIFO, greedy, plain)", a, reqs)
+    runs["A"]["interactive_ttft_ticks"] = [r.ttft for r in reqs
+                                           if r.rid >= SPEC["batch"]]
+    # B, speculation with the n-gram drafter; the kernels' launches
+    reqs = w10(vocab, spec=spec)
+    eng = spec_engine(cfg, params, dev)
+    torch.cuda.synchronize()
+    zero_counters()
+    b = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = counters()
+    same_streams(b, a, "B (speculation)")
+    if b["ticks"] > a["ticks"]:
+        raise AssertionError(f"B took {b['ticks']} ticks, A {a['ticks']}")
+    calls = L * (b["decode_ticks"] + b["verify_ticks"] + b["prefill_chunks"])
+    want = {"quantize_int8_into": calls, "dequantize_int8": 2 * calls,
+            "ring_attention": calls, "quantize_int8": 0}
+    if any(launches[k] != v for k, v in want.items()) or \
+            not b["verify_ticks"]:
+        raise AssertionError(f"B launches {launches}: want {want} "
+                             f"({b['decode_ticks']} decode and "
+                             f"{b['verify_ticks']} verify ticks, "
+                             f"{b['prefill_chunks']} prefill chunks, {L} "
+                             "layers)")
+    runs["B"] = run_line("B (speculation, n-gram drafts)", b, reqs)
+    runs["B"].update(drafted_tokens=b["drafted_tokens"],
+                     accepted_tokens=b["accepted_tokens"],
+                     acceptance_rate=b["acceptance_rate"],
+                     launches=launches)
+    log(f"  B: {b['drafted_tokens']} drafted, {b['accepted_tokens']} "
+        f"accepted (rate {b['acceptance_rate']:.3f}); streams bitwise A's; "
+        f"launches {launches}")
+    del eng
+    # C, the prefix cache
+    reqs = w10(vocab)
+    c = spec_engine(cfg, params, dev, prefix_cache=True).run(reqs)
+    same_streams(c, a, "C (prefix cache)")
+    if c["prefix_hits"] < 10 or c["prefill_chunks"] >= a["prefill_chunks"]:
+        raise AssertionError(f"C: {c['prefix_hits']} prefix hits, "
+                             f"{c['prefill_chunks']} chunks against A's "
+                             f"{a['prefill_chunks']}")
+    runs["C"] = run_line("C (prefix cache)", c, reqs)
+    runs["C"].update(prefix_hits=c["prefix_hits"],
+                     prefix_tokens_reused=c["prefix_tokens_reused"],
+                     prefix_cache=c["prefix_cache"])
+    log(f"  C: {c['prefix_hits']} hits, {c['prefix_tokens_reused']} tokens "
+        f"reused; trie {c['prefix_cache']}; streams bitwise A's")
+    # D, the SLO policy with speculation and the prefix cache
+    reqs = w10(vocab, spec=spec)
+    d = spec_engine(cfg, params, dev, prefix_cache=True).run(
+        reqs, policy=make_policy("slo"))
+    same_streams(d, a, "D (SLO policy, speculation, prefix cache)")
+    runs["D"] = run_line("D (SLO, speculation, prefix cache)", d, reqs)
+    late_d = runs["D"]["interactive_ttft_ticks_p50"]
+    late_a = runs["A"]["interactive_ttft_ticks_p50"]
+    if d["preemptions"] < 1 or d["resumed_tokens"] < 1 or late_d > late_a:
+        raise AssertionError(f"D: {d['preemptions']} preemptions, "
+                             f"{d['resumed_tokens']} resumed tokens, "
+                             f"interactive TTFT p50 {late_d} against A's "
+                             f"{late_a}")
+    runs["D"].update(preemptions=d["preemptions"],
+                     resumed_tokens=d["resumed_tokens"],
+                     shed_requests=d["shed_requests"],
+                     deadline_misses=d["deadline_misses"],
+                     prefix_hits=d["prefix_hits"],
+                     drafted_tokens=d["drafted_tokens"],
+                     accepted_tokens=d["accepted_tokens"],
+                     interactive_ttft_ticks=[r.ttft for r in reqs
+                                             if r.rid >= SPEC["batch"]])
+    log(f"  D: {d['preemptions']} preemptions ({d['resumed_tokens']} "
+        f"tokens resumed), {d['shed_requests']} shed, "
+        f"{d['deadline_misses']} deadline misses, {d['prefix_hits']} prefix "
+        f"hits; interactive TTFT p50 {late_d} ticks against A's {late_a}; "
+        "streams bitwise A's")
+    # E, A and B sampled
+    reqs = w10(vocab, SAMPLED)
+    e_plain = spec_engine(cfg, params, dev).run(reqs)
+    runs["E_plain"] = run_line("E (sampled, plain)", e_plain, reqs)
+    reqs = w10(vocab, SAMPLED, spec)
+    e_spec = spec_engine(cfg, params, dev).run(reqs)
+    if e_spec["tokens"] != e_plain["tokens"] or \
+            e_spec["sampled_tokens"] != e_spec["total_tokens"]:
+        raise AssertionError("E: sampled speculative streams differ from "
+                             "the plain sampled ones")
+    runs["E_spec"] = run_line("E (sampled, speculation)", e_spec, reqs)
+    runs["E_spec"].update(drafted_tokens=e_spec["drafted_tokens"],
+                          accepted_tokens=e_spec["accepted_tokens"])
+    log(f"  E: sampled speculative streams bitwise the plain sampled ones "
+        f"({e_spec['accepted_tokens']}/{e_spec['drafted_tokens']} drafts "
+        "accepted)")
+    # F, a draft model: the same widths cut to a few layers, its own slots
+    dcfg = dataclasses.replace(cfg, n_layers=SPEC["draft_layers"])
+    drafter = DraftModelDrafter(
+        dcfg, tf.init_params(dcfg, SPEC["draft_seed"], dev),
+        n_slots=SPEC["slots"], max_len=SPEC["cache_len"], device=dev)
+    reqs = w10(vocab, spec=spec, n=SPEC["draft_requests"])
+    f = spec_engine(cfg, params, dev, drafter=drafter).run(reqs)
+    same_streams(f, a, "F (draft model)")
+    runs["F"] = run_line(f"F (draft model, {SPEC['draft_layers']} layers, "
+                         f"requests 0..{SPEC['draft_requests'] - 1})", f,
+                         reqs)
+    runs["F"].update(drafted_tokens=f["drafted_tokens"],
+                     accepted_tokens=f["accepted_tokens"])
+    del drafter
+    # B again, its decode and verify calls timed, the rollback checked
+    times = {"decode": [], "verify": []}
+    rollback = {"checked": False}
+    eng = spec_engine(cfg, params, dev)
+    with timed_ticks(eng, times, rollback):
+        again = eng.run(w10(vocab, spec=spec))
+    same_streams(again, a, "B, timed")
+    if not rollback["checked"]:
+        raise AssertionError("no verify tick of run B rejected a draft")
+    med = {k: (float(np.median(v)) if v else float("nan"))
+           for k, v in times.items()}
+    log(f"  B timed: median verify tick {med['verify'] * 1e3:.2f} ms over "
+        f"{len(times['verify'])}, median decode tick "
+        f"{med['decode'] * 1e3:.2f} ms over {len(times['decode'])} (host "
+        "clock, card synchronized around each); the rejected slots of "
+        f"verify tick {rollback['tick']} ({rollback['slots_checked']} "
+        "slot-layers) bitwise their bytes before the call")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  phase 10 peak memory {peak / 1e9:.2f} GB")
+    del eng
+    torch.cuda.empty_cache()
+    res.update({"runs": runs, "launches": launches,
+                "median_verify_tick_s": med["verify"],
+                "median_decode_tick_s": med["decode"],
+                "verify_calls_timed": len(times["verify"]),
+                "decode_calls_timed": len(times["decode"]),
+                "rollback": rollback, "max_memory_bytes": peak})
     return res
 
 
@@ -1983,7 +2580,8 @@ def main() -> int:
                            mcfg.n_kv_heads, DECODE["cache_len"]))
     log("phase 5: the serving main path, MiniCPM-2B at full width")
     decode = decode_phase(dev)
-    for name in ("quantize_int8", "quantize_int8_into", "dequantize_int8"):
+    for name in ("quantize_int8", "quantize_int8_into", "dequantize_int8",
+                 "ring_attention"):
         main_launches[name] = decode["launches"][name]
     log("decode path: " + json.dumps(decode))
     tcfg = get_config(TRAIN["arch"])
@@ -2001,8 +2599,9 @@ def main() -> int:
     ckpt = ckpt_phase(dev, training["max_memory_bytes"])
     log("checkpoint path: " + json.dumps(ckpt))
     log("phase 9: continuous serving, MiniCPM-2B at full width")
+    scfg, sparams = serve_model(dev)
     t9 = time.perf_counter()
-    cont = continuous_phase(dev)
+    cont = continuous_phase(dev, scfg, sparams)
     cont["seconds"] = time.perf_counter() - t9
     write = rows["quantize_int8_into"]
     write["slot_shapes"] = cont.pop("slot_write")
@@ -2015,9 +2614,31 @@ def main() -> int:
         main_launches[name] += cont["launches"][name]
     log(f"phase 9 seconds {cont['seconds']:.2f}")
     log("continuous path: " + json.dumps(cont))
+    log("phase 10: speculation, prefixes and policies, MiniCPM-2B at full "
+        "width")
+    t10 = time.perf_counter()
+    spec = spec_phase(dev, scfg, sparams)
+    spec["seconds"] = time.perf_counter() - t10
+    del sparams
+    torch.cuda.empty_cache()
+    write["verify_shape"] = spec.pop("verify_write")
+    write["max_abs_err"] = max(write["max_abs_err"],
+                               write["verify_shape"]["max_abs_err"])
+    rows["ring_attention"] = spec.pop("ring_attention")
+    rows["ring_attention"]["launches_by_path"] = {
+        "decode": decode["launches"]["ring_attention"],
+        "continuous": cont["launches"]["ring_attention"]}
+    main_launches["ring_attention"] += cont["launches"]["ring_attention"]
+    for name in ("quantize_int8_into", "dequantize_int8", "ring_attention"):
+        rows[name]["launches_by_path"]["speculative"] = \
+            spec["launches"][name]
+        main_launches[name] += spec["launches"][name]
+    log(f"phase 10 seconds {spec['seconds']:.2f}")
+    log("speculative path: " + json.dumps(spec))
+    log(card)
     for name in ("combine3", "compress_bf16", "decompress_bf16",
                  "quantize_int8_into", "dequantize_int8",
-                 "flash_attention"):
+                 "flash_attention", "ring_attention"):
         if main_launches[name] == 0:
             raise AssertionError(f"{name} was not launched on its main path")
     for name, row in rows.items():

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the bit-equality targets).
 
 Each wrapper in :mod:`repro_torch.kernels.block_combine`,
-:mod:`repro_torch.kernels.quantize` and
-:mod:`repro_torch.kernels.flash_attention` runs these for a tensor on the CPU;
+:mod:`repro_torch.kernels.quantize`,
+:mod:`repro_torch.kernels.flash_attention` and
+:mod:`repro_torch.kernels.ring_attention` runs these for a tensor on the CPU;
 ``chip_smoke.py`` and the GPU tests hold each CUDA kernel against them on the
 card. Two-op combines round the intermediate to the operand type, as the
 reference's jnp oracles do.
@@ -23,7 +24,7 @@ import torch
 __all__ = ["OPS", "INV127", "combine2_ref", "combine3_ref",
            "compress_bf16_ref", "decompress_bf16_ref", "quantize_int8_ref",
            "quantize_int8_into_ref", "dequantize_int8_ref",
-           "flash_attention_ref"]
+           "flash_attention_ref", "ring_attention_ref"]
 
 # f32(1/127) (bits 0x3c010204), exact as a Python float
 INV127 = 0.007874015718698502
@@ -154,3 +155,35 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.cat(outs, 1)[:, :Tq].reshape(B, Tq, H, dh)
     lse = torch.cat(lses, 1)[:, :Tq].reshape(B, Tq, H).permute(0, 2, 1)
     return out, lse.contiguous()
+
+
+def ring_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       plan: torch.Tensor, window: int | None = None,
+                       chunk: int | None = None) -> torch.Tensor:
+    """Each query's attention over its row's K/V ring (the reference's
+    ``attention_decode_slots`` einsums): q (B, T, H, D), k and v (B, S, KV,
+    D), plan (2, B) int64, the call's start positions and token counts.
+    Slot s of row b holds position ``last - ((last - s) mod S)``, ``last =
+    pos + n - 1`` (negative: never written); query t at ``pos + t`` reads
+    the held positions up to its own, within ``window`` and its ``chunk``.
+    The scores are the einsum in the input dtype, then f32 over sqrt(D);
+    the softmax in f32, rounded to the input dtype before the second
+    einsum. A query with no position to read averages V."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    pos, n = plan[0], plan[1]
+    qpos = (pos[:, None] + torch.arange(T, device=q.device)[None])[..., None]
+    last = (pos + n - 1)[:, None]
+    ki = last - torch.remainder(last - torch.arange(S, device=q.device), S)
+    ki = ki[:, None, :]                                       # (B, 1, S)
+    valid = (ki >= 0) & (ki <= qpos)
+    if window is not None:
+        valid &= ki > qpos - window
+    if chunk is not None:
+        valid &= (ki // chunk) == (qpos // chunk)
+    qg = q.reshape(B, T, KV, H // KV, D)
+    s = torch.einsum("btgrd,bsgd->bgrts", qg, k).to(torch.float32) \
+        / math.sqrt(D)
+    s = s.masked_fill(~valid[:, None, None], -1e30)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bgrts,bsgd->btgrd", w, v).reshape(B, T, H, D)

@@ -10,6 +10,15 @@ stats summed with the b=1 reducer, greedy or seeded sampling:
       --reduced --continuous --requests 6 --slots 3 --prompt-len 20 80 \\
       --prefill-chunk 16 --device cpu
 
+Speculative decoding (n-gram self-drafting, or ``--draft-model`` with a
+second reduced model), the prefix cache over a shared system prompt, and
+the SLO policy with priorities and deadlines:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \\
+      --reduced --continuous --speculate --prefix-cache --shared-prefix 16 \\
+      --policy slo --priority interactive --deadline-ticks 8 \\
+      --requests 6 --slots 3 --device cpu
+
 The fixed-batch loop: every row decodes in lockstep from an empty cache,
 starting from token 0, with greedy argmax:
 
@@ -20,9 +29,9 @@ The config is the one the reference decodes with (``decode_config``):
 bf16 parameters, and the int8 K/V cache where ``n_kv_heads * head_dim >=
 2048`` (MiniCPM-2B at full width). Under bf16 compute, bf16 parameters give
 the same numbers as the f32 ones the reference stores, since every weight
-is cast to bf16 before use. The reference's other flags (speculation,
-prefixes, policies, the fleet, tracing, the mesh) are later slices; each
-is refused with the ROADMAP item that ports it.
+is cast to bf16 before use. The reference's other flags (the fleet,
+tracing, the mesh) are later slices; each is refused with the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -39,21 +48,16 @@ from repro_torch.core import autotune
 from repro_torch.core.transport import resolve_device
 from repro_torch.launch import step_fns
 from repro_torch.models import transformer as tf
+from repro_torch.serving.speculative import MAX_DRAFT_K
 
 __all__ = ["ServeRun", "serve_loop", "synthetic_workload",
            "serve_continuous", "main"]
 
-_SPEC = ("ROADMAP.md queue 1, 'Next' item 2b (speculation, prefixes, "
-         "policies)")
 _FLEET = "ROADMAP.md queue 1, 'Next' item 2c (the fleet)"
 _OBS = "ROADMAP.md queue 1, 'Next' item 6 (observability)"
 _DIST = "ROADMAP.md queue 1, 'Next' item 4 (the dist transport)"
 # the reference's other flags -> the ROADMAP item that ports them
 UNPORTED_FLAGS = {
-    **{f: _SPEC for f in (
-        "--speculate", "--draft-k", "--draft-model", "--policy",
-        "--priority", "--deadline-ticks", "--prefix-cache",
-        "--prefix-cache-nodes", "--shared-prefix")},
     **{f: _FLEET for f in (
         "--chaos-seed", "--replicas", "--heartbeat-timeout",
         "--heartbeat-misses", "--rejoin-backoff")},
@@ -119,27 +123,44 @@ def serve_loop(args, cfg: tf.ModelConfig | None = None, params=None, *,
 
 def synthetic_workload(n: int, vocab: int, *, gap: int = 2, seed: int = 0,
                        prompt_lens=(3, 12), max_new=(4, 24),
-                       sampling=None) -> list:
-    """The reference's deterministic staggered-arrival request stream
-    (without its speculation, SLO and shared-prefix options): ``n``
-    requests, request ``i`` arriving at tick ``i * gap`` with a prompt of
-    i.i.d. tokens in ``[1, vocab)`` of a length drawn from ``prompt_lens``
-    and ``max_new_tokens`` from ``max_new`` (both inclusive), from numpy's
-    generator seeded with ``seed``. ``sampling`` is a base
+                       sampling=None, spec=None, repetitive=False,
+                       slo=None, shared_prefix: int = 0) -> list:
+    """The reference's deterministic staggered-arrival request stream:
+    ``n`` requests, request ``i`` arriving at tick ``i * gap`` with a prompt
+    of a length drawn from ``prompt_lens`` and ``max_new_tokens`` from
+    ``max_new`` (both inclusive), from numpy's generator seeded with
+    ``seed``. Prompt tokens are i.i.d. in ``[1, vocab)``, or with
+    ``repetitive=True`` a cycle over a per-request alphabet of 2 to 4
+    tokens (text the n-gram drafter can draft from). ``shared_prefix``
+    prepends one common system prompt of that many tokens to every
+    request (what the prefix cache reuses). ``sampling`` is a base
     :class:`~repro_torch.serving.sampling.SamplingParams` or None (greedy);
-    request ``i`` gets seed ``sampling.seed + i``."""
+    request ``i`` gets seed ``sampling.seed + i``. ``spec`` (a
+    :class:`~repro_torch.serving.speculative.SpecParams`) and ``slo`` (an
+    :class:`~repro_torch.serving.slo.SLOParams`) go to every request."""
     from repro_torch.serving import Request
     rng = np.random.default_rng(seed)
+    common = tuple(int(t) for t in rng.integers(1, vocab, shared_prefix)) \
+        if shared_prefix else ()
+
+    def prompt(plen):
+        if not repetitive:
+            return common + tuple(int(t) for t in rng.integers(1, vocab,
+                                                               plen))
+        period = rng.integers(1, vocab, int(rng.integers(2, 5)))
+        return common + tuple(int(period[j % len(period)])
+                              for j in range(plen))
+
     return [
         Request(i,
-                tuple(int(t) for t in rng.integers(
-                    1, vocab, int(rng.integers(prompt_lens[0],
-                                               prompt_lens[1] + 1)))),
+                prompt(int(rng.integers(prompt_lens[0],
+                                        prompt_lens[1] + 1))),
                 max_new_tokens=int(rng.integers(max_new[0], max_new[1] + 1)),
                 arrival=i * gap,
                 sampling=(None if sampling is None else
                           dataclasses.replace(sampling,
-                                              seed=sampling.seed + i)))
+                                              seed=sampling.seed + i)),
+                spec=spec, slo=slo)
         for i in range(n)
     ]
 
@@ -149,41 +170,85 @@ def serve_continuous(args, cfg: tf.ModelConfig | None = None,
     """Drive the continuous-batching engine on a synthetic workload:
     ``args.requests`` requests into ``args.slots`` slots of a
     ``args.cache_len`` ring, the reference's workload from seed
-    ``args.seed + 1``. ``cfg`` defaults to ``decode_config`` of
-    ``args.arch``, ``params`` to ``init_params(cfg, args.seed)``. Prints
+    ``args.seed + 1``, with the speculation, SLO and prefix-cache flags.
+    ``cfg`` defaults to ``decode_config`` of ``args.arch``, ``params`` to
+    ``init_params(cfg, args.seed)``; a ``--draft-model`` is the reduced
+    arch's ``decode_config`` with weights from ``args.seed + 7``. Prints
     the report line and returns the report."""
-    from repro_torch.serving import (SamplingParams, ServingEngine,
+    from repro_torch.serving import (DraftModelDrafter, PriorityClass,
+                                     SamplingParams, ServingEngine,
+                                     SLOParams, SpecParams, make_policy,
                                      make_stats_reducer)
     dev = resolve_device(args.device)
     if cfg is None:
         cfg = decode_config(get_config(args.arch, reduced=args.reduced))
     if params is None:
         params = tf.init_params(cfg, args.seed, dev)
+    drafter = None
+    if args.draft_model:
+        dcfg = decode_config(get_config(args.draft_model, reduced=True))
+        if dcfg.vocab_size != cfg.vocab_size:
+            raise SystemExit(
+                f"--draft-model {args.draft_model}: vocab "
+                f"{dcfg.vocab_size} != target vocab {cfg.vocab_size}")
+        drafter = DraftModelDrafter(
+            dcfg, tf.init_params(dcfg, args.seed + 7, dev),
+            get_parallel(args.draft_model), n_slots=args.slots,
+            max_len=args.cache_len, device=dev)
     engine = ServingEngine(cfg, get_parallel(args.arch), params,
                            n_slots=args.slots, max_len=args.cache_len,
                            prefill_chunk=args.prefill_chunk,
-                           stats_reducer=make_stats_reducer(), device=dev)
+                           stats_reducer=make_stats_reducer(),
+                           drafter=drafter, prefix_cache=args.prefix_cache,
+                           prefix_cache_nodes=(args.prefix_cache_nodes
+                                               or 256), device=dev)
     sampling = None
     if args.temperature > 0:
         sampling = SamplingParams(temperature=args.temperature,
                                   top_k=args.top_k, top_p=args.top_p,
                                   seed=args.sample_seed)
+    spec = None
+    if args.speculate or args.draft_model:
+        spec = SpecParams(draft_k=args.draft_k)
+    slo = None
+    if args.priority is not None or args.deadline_ticks is not None:
+        slo = SLOParams(
+            priority=PriorityClass[(args.priority or "batch").upper()],
+            deadline_ticks=args.deadline_ticks)
     reqs = synthetic_workload(args.requests, cfg.vocab_size,
                               gap=args.arrival_gap, seed=args.seed + 1,
                               prompt_lens=tuple(args.prompt_len),
-                              sampling=sampling)
-    report = engine.run(reqs, static=args.static)
+                              sampling=sampling, spec=spec,
+                              repetitive=spec is not None
+                              and not args.draft_model,
+                              slo=slo, shared_prefix=args.shared_prefix)
+    policy = make_policy(args.policy) if args.policy != "fifo" else None
+    report = engine.run(reqs, static=args.static, policy=policy)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else str(dev))
+    spec_note = (f", {report['accepted_tokens']}/"
+                 f"{report['drafted_tokens']} drafts accepted"
+                 if report["drafted_tokens"] else "")
+    slo_note = (f", {report['preemptions']} preemptions, "
+                f"{report['shed_requests']} shed, "
+                f"{report['deadline_misses']} deadline misses"
+                if report["policy"] != "fifo" else "")
+    prefix_note = ""
+    if "prefix_cache" in report:
+        pc = report["prefix_cache"]
+        prefix_note = (f", prefix cache: {report['prefix_hits']} hits / "
+                       f"{report['prefix_tokens_reused']} tokens reused, "
+                       f"{pc['nodes']} nodes ({pc['evictions']} evicted)")
     print(f"[{report['mode']}/{report['policy']}] "
           f"{report['requests']} requests, "
           f"{report['total_tokens']} tokens "
           f"({report['sampled_tokens']} sampled, "
-          f"{report['prefill_chunks']} prefill chunks) "
+          f"{report['prefill_chunks']} prefill chunks{spec_note}) "
           f"in {report['wall_s']:.2f}s "
           f"({report['tok_s']:.1f} tok/s on {where}, {report['ticks']} "
           f"ticks, ttft p50 {report['ttft_ticks_p50']:.1f} ticks, "
-          f"latency p95 {report['latency_ticks_p95']:.1f} ticks)")
+          f"latency p95 {report['latency_ticks_p95']:.1f} ticks"
+          f"{slo_note}{prefix_note})")
     return report
 
 
@@ -231,6 +296,44 @@ def main(argv=None):
     ap.add_argument("--sample-seed", type=int, default=0,
                     help="continuous mode: base sampler seed (request i uses "
                          "seed + i; streams reproduce run to run)")
+    ap.add_argument("--speculate", action="store_true",
+                    help="continuous mode: speculative decoding with the "
+                         "prompt-lookup (n-gram) self-drafter: several "
+                         "tokens a tick, the same streams")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="continuous mode: max draft tokens per verify "
+                         "tick (1..MAX_DRAFT_K)")
+    ap.add_argument("--draft-model", default=None,
+                    help="continuous mode: draft with this REDUCED arch as "
+                         "the draft model instead of prompt lookup "
+                         "(implies --speculate; vocab must match)")
+    ap.add_argument("--policy", choices=("fifo", "slo"), default="fifo",
+                    help="continuous mode: scheduling policy, 'fifo' (the "
+                         "reference) or 'slo' (priority classes, aging, "
+                         "deadline shedding, exact-resume preemption; "
+                         "implies --continuous)")
+    ap.add_argument("--priority", default=None,
+                    choices=("interactive", "batch", "best_effort"),
+                    help="continuous mode: priority class every synthetic "
+                         "request carries (default: no SLO metadata)")
+    ap.add_argument("--deadline-ticks", type=int, default=None,
+                    help="continuous mode: TTFT deadline in ticks after "
+                         "each request's arrival (>= 1; misses are counted "
+                         "in telemetry)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="continuous mode: cross-request prefix caching; "
+                         "admissions sharing a cached prompt prefix adopt "
+                         "its slot row and prefill only from the first "
+                         "divergent chunk, with the same streams (implies "
+                         "--continuous)")
+    ap.add_argument("--prefix-cache-nodes", type=int, default=None,
+                    help="prefix cache: max cached boundary rows before "
+                         "LRU eviction (>= 1; default 256; requires "
+                         "--prefix-cache)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend one common N-token system prompt to "
+                         "every synthetic request (>= 0; the workload "
+                         "shape --prefix-cache accelerates)")
     ap.add_argument("--autotune-cache", default=None, metavar="PATH",
                     help="per-deployment autotune cache file; overrides "
                          "REPRO_TORCH_AUTOTUNE_CACHE and the default (what "
@@ -245,7 +348,9 @@ def main(argv=None):
     _validate_args(ap, args)
     if args.autotune_cache:
         autotune.set_cache_path(args.autotune_cache)
-    if args.continuous or args.static:
+    if args.continuous or args.static or args.speculate or args.draft_model \
+            or args.policy != "fifo" or args.priority is not None \
+            or args.deadline_ticks is not None or args.prefix_cache:
         return serve_continuous(args)
     return serve_loop(args)
 
@@ -270,6 +375,23 @@ def _validate_args(ap, args) -> None:
         ap.error(f"--top-k must be >= 0, got {args.top_k}")
     if not 0.0 < args.top_p <= 1.0:
         ap.error(f"--top-p must be in (0, 1], got {args.top_p}")
+    if not 1 <= args.draft_k <= MAX_DRAFT_K:
+        ap.error(f"--draft-k must be in [1, {MAX_DRAFT_K}], "
+                 f"got {args.draft_k}")
+    if args.deadline_ticks is not None and args.deadline_ticks < 1:
+        ap.error(f"--deadline-ticks must be >= 1, got {args.deadline_ticks}")
+    if args.prefix_cache_nodes is not None:
+        if not args.prefix_cache:
+            ap.error("--prefix-cache-nodes requires --prefix-cache "
+                     "(the node bound configures the prefix trie)")
+        if args.prefix_cache_nodes < 1:
+            ap.error(f"--prefix-cache-nodes must be >= 1, "
+                     f"got {args.prefix_cache_nodes}")
+    if args.shared_prefix < 0:
+        ap.error(f"--shared-prefix must be >= 0, got {args.shared_prefix}")
+    if args.policy != "fifo" and args.static:
+        ap.error("--policy slo is incompatible with --static: static "
+                 "batching IS the batch-synchronous FIFO reference")
 
 
 if __name__ == "__main__":

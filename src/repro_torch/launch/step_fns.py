@@ -1,6 +1,6 @@
 """Step builders (the port of ``repro.launch.step_fns``): the train step,
-the fixed-batch and the slot decode steps and the slot prefill step, on one
-device.
+the fixed-batch and the slot decode steps, the slot prefill step and the
+speculative verify step, on one device.
 
 :func:`make_train_step` is the reference's train step at one data-parallel
 rank: no mesh and no sharding specs. At p = 1 the reference's gradient
@@ -26,7 +26,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.optim.optimizers import (Optimizer, adamw, cosine_schedule,
                                          tree_leaves, tree_map)
 
-__all__ = ["make_train_step", "make_serve_step", "make_prefill_step"]
+__all__ = ["make_train_step", "make_serve_step", "make_prefill_step",
+           "make_verify_step"]
 
 _TP = ("tensor-parallel decode is not ported yet: ROADMAP.md queue 1, "
        "'Next' item 4 (the dist transport)")
@@ -211,5 +212,66 @@ def make_prefill_step(cfg: tf.ModelConfig, pcfg: ParallelConfig | None = None,
         tok = sample_tokens(logits, row["key"], first, row["temperature"],
                             row["top_k"], row["top_p"])
         return tok[0], caches
+
+    return step
+
+
+def make_verify_step(cfg: tf.ModelConfig, pcfg: ParallelConfig | None,
+                     draft_k: int, ring_slack: int = 0):
+    """One-pass speculative verification against per-slot caches.
+
+    ``step(params, tokens, caches, active, n_draft, sampling=None) ->
+    (emitted (B, K+1), accept (B,), caches)``, K = ``draft_k``: ``tokens``
+    (B, K+1) on the device holds per row the request's last emitted token
+    and its ``n_draft[b]`` drafts (the rest padding); ``active`` (B,) and
+    ``n_draft`` (B,) are host arrays. The stack scores all K+1 positions
+    in one forward (:func:`transformer.verify_forward`, the pad columns
+    writing nothing); each position's token is the argmax, or with
+    ``sampling`` (as in :func:`make_serve_step`, ``sampling["step"]`` the
+    first position's token index) the committed sampler's draw
+    (:func:`sampling.sample_tokens_block`), and a position whose logits
+    are not finite predicts ``-1``, which matches no draft. Acceptance is
+    the longest matching draft prefix (:func:`transformer.verify_accept`).
+    ``emitted`` and ``accept`` come back as host int64 tensors, in the
+    call's one device-to-host copy, and the commit then writes the
+    rejected tokens' ring slots back and advances the positions by
+    ``accept`` (:func:`transformer.commit_verify_caches`). A row with
+    ``n_draft == 0`` is one decode step; an inactive row writes nothing
+    and keeps its position.
+
+    ``ring_slack`` is the caches' (``init_cache(ring_slack=)``): a window
+    or chunk-bounded ring needs ``ring_slack >= draft_k``, or a call's
+    later writes would wrap over positions its earliest queries read."""
+    if pcfg is not None and pcfg.tp_shards > 1:
+        raise NotImplementedError(_TP)
+    tf.check_supported(cfg)
+    bounded = any(s.kind == "attn" and (s.sliding_window is not None
+                                        or s.chunk_size is not None)
+                  for layer in cfg.pattern for s in layer)
+    if bounded and draft_k > ring_slack:
+        raise ValueError(f"draft_k {draft_k} exceeds the ring slack "
+                         f"{ring_slack} of {cfg.name}'s bounded rings")
+    T = draft_k + 1
+    from repro_torch.serving.sampling import sample_tokens_block
+
+    @torch.no_grad()
+    def step(params, tokens, caches, active, n_draft, sampling=None):
+        nd = torch.as_tensor(np.asarray(n_draft)).to(torch.int64)
+        lengths = nd.clamp(0, T - 1) + 1
+        logits, old = tf.verify_forward(params, cfg, {"tokens": tokens},
+                                        caches, lengths=lengths,
+                                        active=active)
+        if sampling is None:
+            pred = torch.argmax(logits, dim=-1)
+        else:
+            pred = sample_tokens_block(logits, sampling["key"],
+                                       sampling["step"],
+                                       sampling["temperature"],
+                                       sampling["top_k"], sampling["top_p"])
+        emitted, accept = tf.verify_accept(_guard(logits, pred), tokens, nd)
+        host = torch.cat([emitted, accept[:, None]], dim=1).cpu()
+        emitted, accept = host[:, :-1], host[:, -1]
+        return emitted, accept, tf.commit_verify_caches(caches, old, accept,
+                                                        active)
 
     return step

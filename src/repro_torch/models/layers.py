@@ -29,11 +29,13 @@ import torch.nn.functional as F
 from repro_torch.core.transport import host_to
 from repro_torch.data import threefry
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ring_attention
 
 __all__ = ["Params", "AttnConfig", "FLASH_THRESHOLD", "INIT_CHUNK",
            "dense_init", "rmsnorm_init", "rmsnorm", "act_fn", "rope_freqs", "apply_rope",
-           "attention", "attention_decode", "attention_decode_slots", "mlp"]
+           "attention", "attention_decode", "attention_decode_slots",
+           "ring_written_slots", "SERVE_ROWS", "serve_rows", "serve_matmul",
+           "serve_rmsnorm", "mlp"]
 
 Params = dict
 
@@ -197,12 +199,56 @@ def _attn_mask(Tq: int, Tk: int, causal: bool, window: int | None,
     return m
 
 
-def _qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions):
+# Rows per call of a row-wise op on the slot paths (decode ticks, prefill
+# chunks, verify calls; the fixed-batch decode has one shape every step and
+# calls the products directly). cuBLAS picks a product's kernel, and
+# PyTorch a reduction's layout, from the operands' shapes, and with them
+# the order of each sum, so a token's row of ``x @ w`` or of a norm can
+# round differently in a decode tick (B rows), a speculative verify call
+# (B * (k + 1) rows) and a prefill chunk (its bucket): on the card the
+# same token would get other bits on each path, and a speculative or
+# resumed stream could part from the plain one at a near-tie. Calls of
+# exactly SERVE_ROWS rows give a row the same bits whatever call it is in.
+SERVE_ROWS = 128
+
+
+def serve_rows(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` (a row-wise op on (rows, K) tensors) over the rows of ``x``
+    (..., K) in calls of exactly :data:`SERVE_ROWS` rows, the last
+    zero-padded, each into its own output: a row's result does not depend
+    on the other rows or on their count. On the CPU, where the port's
+    tests find no such dependence, ``fn`` takes all rows in one call."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, K)
+    if x.device.type == "cpu":
+        out = fn(rows)
+        return out.reshape(*lead, out.shape[-1])
+    M = rows.shape[0]
+    pad = -M % SERVE_ROWS
+    if pad:
+        rows = F.pad(rows, (0, 0, 0, pad))
+    out = [fn(rows[i:i + SERVE_ROWS]) for i in range(0, M + pad, SERVE_ROWS)]
+    out = out[0] if len(out) == 1 else torch.cat(out)
+    return out[:M].reshape(*lead, out.shape[-1])
+
+
+def serve_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (x (..., K), w (K, N)) through :func:`serve_rows`."""
+    return serve_rows(lambda r: r @ w, x)
+
+
+def serve_rmsnorm(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """:func:`rmsnorm` through :func:`serve_rows`."""
+    return serve_rows(lambda r: rmsnorm(p, r), x)
+
+
+def _qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions,
+         matmul=torch.matmul):
     B, T, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).view(B, T, H, dh)
-    k = (x @ p["wk"].to(x.dtype)).view(B, T, KV, dh)
-    v = (x @ p["wv"].to(x.dtype)).view(B, T, KV, dh)
+    q = matmul(x, p["wq"].to(x.dtype)).view(B, T, H, dh)
+    k = matmul(x, p["wk"].to(x.dtype)).view(B, T, KV, dh)
+    v = matmul(x, p["wv"].to(x.dtype)).view(B, T, KV, dh)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -280,7 +326,9 @@ def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor,
     x: (B, 1, D); cache = {"k","v"[,"ks","vs"]} with k/v (B, S, KV, dh)
     (bf16, or int8 + f32 scales); cache_pos: tokens already cached, a host
     integer (the reference's scalar position). Writes the new token's K/V
-    into the ring in place and returns (out, cache dict).
+    into the ring in place, attends through the slot path's
+    ``ring_attention`` (every row at ``cache_pos``) and returns (out, cache
+    dict).
     """
     B = x.shape[0]
     S = cache["k"].shape[1]
@@ -291,23 +339,11 @@ def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor,
     new_cache = {n: cache[n] for n in ("k", "v", "ks", "vs") if n in cache}
     cache_k = _cache_read(cache["k"], cache.get("ks"), q.dtype)
     cache_v = _cache_read(cache["v"], cache.get("vs"), q.dtype)
-    # ring cache: slot s currently holds absolute position
-    # pos - ((pos - s) mod S) (negative -> not yet written)
-    ki = cache_pos - torch.remainder(
-        cache_pos - torch.arange(S, device=x.device), S)
-    valid = ki >= 0
-    if cfg.sliding_window is not None:
-        valid &= ki > cache_pos - cfg.sliding_window
-    if cfg.chunk_size is not None:
-        valid &= (ki // cfg.chunk_size) == (cache_pos // cfg.chunk_size)
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    rep = H // KV
-    qg = q.reshape(B, 1, KV, rep, dh)
-    logits = _scores(qg, cache_k, dh).masked_fill(~valid, -1e30)
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bgrts,bsgd->btgrd", w, cache_v)
-    out = out.reshape(B, 1, H * dh) @ p["wo"].to(x.dtype)
-    return out, new_cache
+    # every row's call starts at cache_pos and writes one token
+    plan = host_to(torch.tensor([[cache_pos] * B, [1] * B]), x.device)
+    out = ring_attention.ring_attention(q, cache_k, cache_v, plan,
+                                        cfg.sliding_window, cfg.chunk_size)
+    return out.reshape(B, 1, -1) @ p["wo"].to(x.dtype), new_cache
 
 
 def _cache_write_rows(cache: Params, k: torch.Tensor, v: torch.Tensor,
@@ -363,32 +399,38 @@ def attention_decode_slots(p: Params, cfg: AttnConfig, x: torch.Tensor,
     # after this call's writes row b's newest absolute position is
     # pos + n - 1; slot s holds last - ((last - s) mod S) (negative: never
     # written for this request)
-    dpos, dn = host_to(torch.stack([pos, n]), x.device)
+    plan = host_to(torch.stack([pos, n]), x.device)
+    dpos, dn = plan
     t = torch.arange(T, device=x.device)
     positions = dpos[:, None] + t[None]                       # (B, T)
-    q, k, v = _qkv(p, cfg, x, positions)
+    q, k, v = _qkv(p, cfg, x, positions, serve_matmul)
     _cache_write_rows(cache, k, v, pos, n, torch.remainder(positions, S),
                       t[None] < dn[:, None])
     new_cache = {c: cache[c] for c in ("k", "v", "ks", "vs") if c in cache}
     cache_k = _cache_read(cache["k"], cache.get("ks"), q.dtype)
     cache_v = _cache_read(cache["v"], cache.get("vs"), q.dtype)
-    last = (dpos + dn - 1)[:, None]                           # (B, 1)
-    ki = last - torch.remainder(last - torch.arange(S, device=x.device), S)
-    ki = ki[:, None, :]                                       # (B, 1, S)
-    qpos = positions[..., None]                               # (B, T, 1)
-    valid = (ki >= 0) & (ki <= qpos)
-    if cfg.sliding_window is not None:
-        valid &= ki > qpos - cfg.sliding_window
-    if cfg.chunk_size is not None:
-        valid &= (ki // cfg.chunk_size) == (qpos // cfg.chunk_size)
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    qg = q.reshape(B, T, KV, H // KV, dh)
-    logits = _scores(qg, cache_k, dh).masked_fill(~valid[:, None, None],
-                                                  -1e30)
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bgrts,bsgd->btgrd", w, cache_v)
-    out = out.reshape(B, T, H * dh) @ p["wo"].to(x.dtype)
+    H, dh = cfg.n_heads, cfg.head_dim
+    out = ring_attention.ring_attention(q, cache_k, cache_v, plan,
+                                        cfg.sliding_window, cfg.chunk_size)
+    out = serve_matmul(out.reshape(B, T, H * dh), p["wo"].to(x.dtype))
     return out, new_cache
+
+
+def ring_written_slots(cache_pos: torch.Tensor, S: int, n) -> tuple:
+    """The ring slots a call writes, on the host (the port's form of the
+    reference's ``ring_restore_mask``): token ``t < n[b]`` of row ``b``
+    lands at slot ``(cache_pos[..., b] + t) % S``, as
+    :func:`attention_decode_slots` writes it (``n[b] <= S``: a row's slots
+    are distinct). Returns ``(rows (N,), ts (N,), slots (..., N))`` int64,
+    one entry per written token, rows ascending. A verify call that keeps
+    ``accept[b]`` tokens of row ``b`` must restore the entries with ``ts >=
+    accept[rows]``: the reference's mask is True exactly at those slots."""
+    n = torch.as_tensor(n).to(torch.int64).reshape(-1).clamp(0, S)
+    rows = torch.repeat_interleave(torch.arange(len(n)), n)
+    ts = torch.arange(len(rows)) - torch.repeat_interleave(
+        torch.cumsum(n, 0) - n, n)
+    slots = torch.remainder(cache_pos.to(torch.int64)[..., rows] + ts, S)
+    return rows, ts, slots
 
 
 # --------------------------------------------------------------------------
@@ -407,10 +449,12 @@ def mlp_init(keys, d_model: int, d_ff: int, gated: bool,
                     device)
 
 
-def mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    h = x @ p["w_in"].to(x.dtype)
+def mlp(p: Params, x: torch.Tensor, activation: str,
+        matmul=torch.matmul) -> torch.Tensor:
+    """The MLP sublayer; the slot paths pass :func:`serve_matmul`."""
+    h = matmul(x, p["w_in"].to(x.dtype))
     if "w_gate" in p:
-        h = act_fn(activation)(x @ p["w_gate"].to(x.dtype)) * h
+        h = act_fn(activation)(matmul(x, p["w_gate"].to(x.dtype))) * h
     else:
         h = act_fn(activation)(h)
-    return h @ p["w_out"].to(x.dtype)
+    return matmul(h, p["w_out"].to(x.dtype))

@@ -25,7 +25,11 @@ continuous-batching engine's slots (``init_cache(per_slot=True)``,
 :func:`decode_step` with ``active``, :func:`prefill_step`). Positions stay
 on the host in both; the K/V rings are written in place, and a row that is
 not written keeps its bytes (the reference writes every row and merges the
-old ones back, ``merge_cache_rows``).
+old ones back, ``merge_cache_rows``). A speculative verify call
+(:func:`verify_forward`) writes in place too, so it saves the ring slots it
+will write first and :func:`commit_verify_caches` writes the rejected
+tokens' slots back; the reference scores into fresh arrays and restores
+from the old ones.
 
 This slice builds the dense decoders (sublayer kinds ``attn`` and ``mlp``,
 token inputs). A config with another kind, M-RoPE, embeddings input or an
@@ -53,7 +57,9 @@ __all__ = ["MoESettings", "SubSpec", "ModelConfig", "PORTED_KINDS",
            "forward", "unembed", "chunked_ce_loss", "loss_fn", "decode_step",
            "advance_pos", "cache_layer_kinds", "prefill_call_bound",
            "supports_slot_serving", "reset_cache_slots", "cache_row",
-           "prefill_step"]
+           "prefill_step", "extract_cache_row", "adopt_prefix",
+           "supports_speculation", "save_ring_slots", "restore_ring_slots",
+           "verify_forward", "commit_verify_caches", "verify_accept"]
 
 PORTED_KINDS = ("attn", "mlp")
 REMAT_POLICIES = ("full", "dots")
@@ -279,12 +285,16 @@ def _period(tree, i: int):
 
 
 def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
-               positions, cache, lengths=None, active=None):
+               positions, cache, lengths=None, active=None,
+               serving: bool = False):
     """One sublayer (``attn`` or ``mlp``: the entry points have checked the
     config). A decode ``cache`` (one period's views) is written in place:
     per-slot caches (``pos`` per row) through ``attention_decode_slots``,
-    with ``lengths`` (prefill pads) and ``active`` (rows to write)."""
-    h = L.rmsnorm(sp["norm"], x)
+    with ``lengths`` (prefill pads) and ``active`` (rows to write).
+    ``serving`` (a call on per-slot caches) takes the norm and the MLP's
+    products through ``layers.serve_rows``, as ``attention_decode_slots``
+    takes its own."""
+    h = (L.serve_rmsnorm if serving else L.rmsnorm)(sp["norm"], x)
     if s.kind == "attn":
         acfg = cfg.attn_cfg(s)
         if cache is not None and cache["pos"].dim():
@@ -295,7 +305,8 @@ def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
         else:
             o = L.attention(sp, acfg, h, positions)
     else:
-        o = L.mlp(sp, h, cfg.activation)
+        o = L.mlp(sp, h, cfg.activation,
+                  L.serve_matmul if serving else torch.matmul)
     return x + o
 
 
@@ -322,6 +333,7 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
     ``cfg.remat_policy``."""
     n = len(layer_params[0][0]["norm"]["scale"])
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    serving = caches is not None and _per_slot(caches)
     if remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"{cfg.name}: remat_policy {cfg.remat_policy!r}; "
                          f"want one of {REMAT_POLICIES}")
@@ -340,7 +352,7 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                                    **_REMAT_KW[cfg.remat_policy])
                 else:
                     x = _apply_sub(sp, s, cfg, x, positions, c, lengths,
-                                   active)
+                                   active, serving)
     return x, caches
 
 
@@ -364,10 +376,12 @@ def forward(params: Params, cfg: ModelConfig, inputs: dict) -> tuple:
     return L.rmsnorm(params["final_norm"], x), aux
 
 
-def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
-            ) -> torch.Tensor:
+def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            matmul=torch.matmul) -> torch.Tensor:
+    """Logits ``x @ embed.T`` (tied) or ``x @ unembed``; the slot paths
+    pass ``layers.serve_matmul``."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return x @ w.to(x.dtype)
+    return matmul(x, w.to(x.dtype))
 
 
 def _ce_chunk(params: Params, cfg: ModelConfig, xc: torch.Tensor,
@@ -446,8 +460,12 @@ def decode_step(params: Params, cfg: ModelConfig, inputs: dict,
     x, _ = embed_inputs(params, cfg, inputs)
     x, caches = _run_stack(params["layers"], cfg.pattern, cfg, x, None,
                            caches, active=active)
-    x = L.rmsnorm(params["final_norm"], x)
-    logits = unembed(params, cfg, x)[:, -1]
+    if _per_slot(caches):
+        x = L.serve_rmsnorm(params["final_norm"], x)
+        logits = unembed(params, cfg, x, L.serve_matmul)[:, -1]
+    else:
+        x = L.rmsnorm(params["final_norm"], x)
+        logits = unembed(params, cfg, x)[:, -1]
     return logits.to(torch.float32), advance_pos(caches, active)
 
 
@@ -511,9 +529,9 @@ def reset_cache_slots(caches: tuple, free_mask) -> tuple:
 
 def cache_row(caches: tuple, slot: int) -> tuple:
     """One slot's row of per-slot caches as batch-of-1 VIEWS, positions
-    included: what a call writes into the row lands in the caches, so the
-    port needs neither the reference's ``extract_cache_row`` copy nor its
-    ``adopt_prefix`` splice."""
+    included: what a call writes into the row lands in the caches, so a
+    prefill chunk needs no splice (the prefix cache's copies are
+    :func:`extract_cache_row` and :func:`adopt_prefix`)."""
     return tuple({k: v[:, slot:slot + 1] for k, v in c.items()}
                  for c in caches)
 
@@ -544,9 +562,191 @@ def prefill_step(params: Params, cfg: ModelConfig, inputs: dict,
     x, _ = embed_inputs(params, cfg, inputs)
     x, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, None, caches,
                       lengths=lengths, active=act)
-    x = L.rmsnorm(params["final_norm"], x)
+    x = L.serve_rmsnorm(params["final_norm"], x)
     idx = host_to((lengths - 1).clamp_min(0), x.device)
     last = x[torch.arange(B, device=x.device), idx][:, None]
-    logits = unembed(params, cfg, last)[:, 0].to(torch.float32)
+    logits = unembed(params, cfg, last, L.serve_matmul)[:, 0].to(
+        torch.float32)
     grow = (lengths * act).to(torch.int32)
     return logits, tuple({**c, "pos": c["pos"] + grow} for c in caches)
+
+
+def extract_cache_row(caches: tuple, slot: int, length: int | None = None
+                      ) -> tuple:
+    """Copy one slot's row out of per-slot caches as a batch-of-1 tuple of
+    COPIES (the prefix trie keeps them while the slot moves on; the views
+    of :func:`cache_row` would change with it).
+
+    ``length``: the tokens the row holds (its position ``p``). A row that
+    started all zeros (a freed slot, pads never written) is zero in every
+    ring slot at or past ``p`` while ``p <= S``, so only the first
+    ``min(p, S)`` slots of each leaf are copied; on a wrapped ring (``p >
+    S``), and with no ``length``, the whole ring is. :func:`adopt_prefix`
+    writes the zeros back, so a trimmed row adopts to the same bytes as a
+    whole one."""
+    out = []
+    for c in caches:
+        S = c["k"].shape[2]
+        m = S if length is None else min(int(length), S)
+        row = {k: v[:, slot:slot + 1, :m].clone() for k, v in c.items()
+               if k != "pos"}
+        row["pos"] = c["pos"][:, slot:slot + 1].clone()
+        out.append(row)
+    return tuple(out)
+
+
+def adopt_prefix(caches: tuple, row: tuple, slot: int) -> tuple:
+    """Copy a batch-of-1 ``row`` (:func:`extract_cache_row`) into ``slot``
+    in place: its ring slots, zeros past them, and its positions. Every
+    other slot stays bit-unchanged. Returns the caches with the new
+    positions."""
+    out = []
+    for c, r in zip(caches, row):
+        for name, leaf in c.items():
+            if name == "pos":
+                continue
+            dst = leaf[:, slot]
+            m = r[name].shape[2]
+            dst[:, :m].copy_(r[name][:, 0])
+            dst[:, m:].zero_()
+        pos = c["pos"].clone()
+        pos[:, slot] = r["pos"][:, 0]
+        out.append({**c, "pos": pos})
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# speculative decoding: one-pass verify and the rollback of rejected writes
+# --------------------------------------------------------------------------
+
+def supports_speculation(cfg: ModelConfig) -> bool:
+    """Whether the speculative verify step can drive this architecture: the
+    reference's rule, slot serving plus a rollback rule for every cached
+    sublayer kind (attention rings roll back their rejected writes; the
+    reference's mamba and rwkv keep per-token checkpoints, which come with
+    queue 1's item 3)."""
+    return (supports_slot_serving(cfg)
+            and set(cache_layer_kinds(cfg)) <= {"attn", "mamba", "rwkv"})
+
+
+def _ring_index(rows: torch.Tensor, slots: torch.Tensor, device) -> tuple:
+    """Advanced-index tensors (period, row, slot), each (n_periods, N), on
+    ``device``, for the entries of :func:`layers.ring_written_slots`: one
+    host-to-device copy."""
+    periods = torch.arange(slots.shape[0])[:, None].expand_as(slots)
+    idx = host_to(torch.stack([periods, rows[None].expand_as(slots),
+                               slots]), device)
+    return tuple(idx.unbind(0))
+
+
+def save_ring_slots(caches: tuple, n) -> tuple:
+    """Before a call that writes ``n[b]`` tokens of row ``b`` from its
+    position (host integers, ``0`` for a row that writes nothing): the
+    pre-call bytes of every ring slot it will write, from every leaf over
+    all periods at once (one gather per leaf), with the pre-call
+    positions. :func:`restore_ring_slots` writes them back."""
+    saved = []
+    for c in caches:
+        rows, ts, slots = L.ring_written_slots(c["pos"], c["k"].shape[2], n)
+        vals = {}
+        if len(rows):
+            idx = _ring_index(rows, slots, c["k"].device)
+            vals = {k: v[idx] for k, v in c.items() if k != "pos"}
+        saved.append({"pos": c["pos"].clone(), "rows": rows, "ts": ts,
+                      "slots": slots, "vals": vals})
+    return tuple(saved)
+
+
+def restore_ring_slots(caches: tuple, saved: tuple, keep) -> tuple:
+    """Undo a call's writes past each row's first ``keep[b]`` tokens (host
+    integers): the slots that tokens ``t >= keep[b]`` wrote get their saved
+    bytes back, in place (nothing is written when every row keeps all its
+    tokens), and the positions become the saved ones plus ``keep``.
+    ``keep`` of zeros undoes the call."""
+    keep = torch.as_tensor(keep).to("cpu", torch.int64).reshape(-1)
+    out = []
+    for c, sv in zip(caches, saved):
+        back = sv["ts"] >= keep[sv["rows"]]
+        if bool(back.any()):
+            dev = c["k"].device
+            idx = _ring_index(sv["rows"][back], sv["slots"][:, back], dev)
+            sel = host_to(torch.nonzero(back).flatten(), dev)
+            for name, vals in sv["vals"].items():
+                c[name].index_put_(idx, vals.index_select(1, sel))
+        out.append({**c, "pos": sv["pos"] + keep.to(torch.int32)})
+    return tuple(out)
+
+
+def verify_forward(params: Params, cfg: ModelConfig, inputs: dict,
+                   caches: tuple, lengths=None, active=None) -> tuple:
+    """Score a verify call's tokens in ONE pass against per-slot caches.
+
+    inputs: {'tokens': (B, T)}: per row, token 0 is the request's last
+    emitted (not yet cached) token, tokens ``1..lengths[b]-1`` its draft
+    proposals, the rest padding. ``lengths`` (B,) host integers (default
+    T): the pad columns write nothing to the rings (near a ring's capacity
+    a pad write would wrap over live K/V the real columns read).
+    ``active`` (B,) host bools (default all): an inactive row writes
+    nothing. The real columns' K/V is written into the rings in place and
+    the positions are not advanced. Returns (logits (B, T, V) f32, where
+    position ``t`` scores the next token after input token ``t``, and
+    ``old``, :func:`save_ring_slots` of the slots the call wrote), which
+    :func:`commit_verify_caches` needs to keep only the accepted tokens."""
+    check_supported(cfg)
+    B, T = inputs["tokens"].shape
+    act = torch.ones(B, dtype=torch.bool) if active is None \
+        else _host_rows(active, B)
+    n = torch.full((B,), T, dtype=torch.int64) if lengths is None \
+        else torch.as_tensor(lengths).to("cpu", torch.int64).reshape(-1)
+    old = save_ring_slots(caches, n * act)
+    x, _ = embed_inputs(params, cfg, inputs)
+    x, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, None, caches,
+                      lengths=n, active=act)
+    x = L.serve_rmsnorm(params["final_norm"], x)
+    return unembed(params, cfg, x, L.serve_matmul).to(torch.float32), old
+
+
+def commit_verify_caches(raw_caches: tuple, old: tuple, accept,
+                         active=None) -> tuple:
+    """Commit exactly the accepted prefix of a verify call, per slot.
+
+    ``accept`` (B,) host integers in ``[1, T]``: how many of the call's
+    input tokens each row keeps. The ring slots written by rejected tokens
+    get their pre-call bytes back, in place, and the positions advance by
+    ``accept`` only; an inactive row keeps its position (it wrote
+    nothing)."""
+    keep = torch.as_tensor(accept).to("cpu", torch.int64).reshape(-1)
+    if active is not None:
+        keep = keep * _host_rows(active, len(keep))
+    return restore_ring_slots(raw_caches, old, keep)
+
+
+def verify_accept(pred: torch.Tensor, tokens: torch.Tensor, n_draft) -> tuple:
+    """Longest-matching-prefix acceptance for one verify call.
+
+    pred: (B, T) the model's (argmax or committed sampler's) token after
+    each input position; tokens: (B, T) the call's inputs (token 0 the last
+    emitted, 1..T-1 drafts); n_draft: (B,) how many drafts are real.
+    Returns (emitted (B, T), accept (B,)) int64 on ``pred``'s device: row
+    ``b`` emits ``emitted[b, :accept[b]]``, the matched drafts followed by
+    the model's own token at the first mismatch (or the bonus token when
+    every draft matched), and ``-1`` after them; ``accept == 1 +
+    matched``, so a row with no drafts is one plain decode step."""
+    dev = pred.device
+    B, T = tokens.shape
+    k = T - 1
+    pred = pred.to(torch.int64)
+    tokens = tokens.to(dev, torch.int64)
+    nd = torch.as_tensor(n_draft).to(torch.int64)
+    nd = nd if nd.device == dev else host_to(nd.cpu(), dev)
+    ok = (pred[:, :-1] == tokens[:, 1:]) & \
+        (torch.arange(k, device=dev)[None] < nd[:, None])
+    n_match = (torch.cumprod(ok.to(torch.int64), dim=1).sum(dim=1) if k
+               else torch.zeros(B, dtype=torch.int64, device=dev))
+    corr = torch.gather(pred, 1, n_match[:, None])
+    drafts = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
+    idx = torch.arange(T, device=dev)[None]
+    emitted = torch.where(idx < n_match[:, None], drafts,
+                          torch.where(idx == n_match[:, None], corr,
+                                      torch.full_like(corr, -1)))
+    return emitted, n_match + 1

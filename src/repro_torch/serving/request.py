@@ -1,6 +1,5 @@
 """Request objects and their lifecycle for the serving engine (the port of
-``repro.serving.request``, with the port's own copy of the reference's
-:class:`SpecParams` until queue 1's item 2b ports speculative decoding).
+``repro.serving.request``).
 
 A request is born QUEUED, becomes PREFILLING when the admission scheduler
 packs it into a KV-cache slot (its prompt starts streaming into the slot,
@@ -26,50 +25,9 @@ import enum
 
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.slo import SLOParams, req_deadline
+from repro_torch.serving.speculative import SpecParams
 
-__all__ = ["MAX_DRAFT_K", "SpecParams", "RequestState", "Request"]
-
-MAX_DRAFT_K = 16
-
-
-@dataclasses.dataclass(frozen=True)
-class SpecParams:
-    """Per-request speculative-decoding controls (the reference's, copied;
-    the engine refuses a request that carries one until item 2b).
-
-    draft_k: maximum drafts per tick (the verify step's compiled width).
-    min_k: adaptation floor — the controller never proposes fewer.
-    ngram: longest trailing n-gram the lookup drafter tries to match.
-    adapt: enable the acceptance-EWMA draft-length controller.
-    low/high: acceptance-rate thresholds — below ``low`` the controller
-        shrinks k by one, above ``high`` it grows k by one (within
-        [min_k, draft_k]).
-    ewma: smoothing weight of the newest tick's acceptance rate.
-    """
-
-    draft_k: int = 4
-    min_k: int = 1
-    ngram: int = 3
-    adapt: bool = True
-    low: float = 0.3
-    high: float = 0.7
-    ewma: float = 0.4
-
-    def __post_init__(self):
-        if not 1 <= self.draft_k <= MAX_DRAFT_K:
-            raise ValueError(
-                f"draft_k must be in [1, {MAX_DRAFT_K}], got {self.draft_k}")
-        if not 1 <= self.min_k <= self.draft_k:
-            raise ValueError(
-                f"min_k must be in [1, draft_k={self.draft_k}], "
-                f"got {self.min_k}")
-        if self.ngram < 1:
-            raise ValueError(f"ngram must be >= 1, got {self.ngram}")
-        if not 0.0 <= self.low <= self.high <= 1.0:
-            raise ValueError(
-                f"need 0 <= low <= high <= 1, got {self.low}/{self.high}")
-        if not 0.0 < self.ewma <= 1.0:
-            raise ValueError(f"ewma must be in (0, 1], got {self.ewma}")
+__all__ = ["RequestState", "Request"]
 
 
 class RequestState(enum.Enum):
@@ -91,7 +49,8 @@ class Request:
     :class:`~repro_torch.serving.sampling.SamplingParams` for seeded
     temperature/top-k/top-p sampling. ``spec`` is None for plain
     one-token-per-tick decoding or a
-    :class:`SpecParams` to opt this request into
+    :class:`~repro_torch.serving.speculative.SpecParams` to opt this
+    request into
     speculative decoding — the emitted stream is identical either way (the
     verify step accepts only tokens the committed greedy/sampled stream
     would have produced); speculation changes how many ticks the stream

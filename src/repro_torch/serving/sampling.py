@@ -26,7 +26,7 @@ from repro_torch.core.transport import host_to
 from repro_torch.data import threefry
 
 __all__ = ["SamplingParams", "GREEDY", "base_key", "sample_tokens",
-           "slot_arrays", "set_slot"]
+           "sample_tokens_block", "slot_arrays", "set_slot"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +117,31 @@ def sample_tokens(logits: torch.Tensor, keys, steps, temperature, top_k,
     folded = threefry.fold_in_rows(keys, steps)
     sampled = threefry.categorical(folded, masked)
     return torch.where(temperature > 0.0, sampled, greedy_tok)
+
+
+def sample_tokens_block(logits: torch.Tensor, keys, steps, temperature,
+                        top_k, top_p) -> torch.Tensor:
+    """Sample a block of T consecutive token positions per row.
+
+    logits: (B, T, V); keys (B, 2); steps (B,): the request-local index of
+    each row's FIRST position's token; the per-row arrays as in
+    :func:`sample_tokens`. Position ``t`` of row ``b`` draws with
+    ``fold_in(key_b, steps[b] + t)``, the key the non-speculative engine
+    uses for that token index, so a speculative verify reproduces the
+    committed sampled stream under any accept/reject schedule. Returns
+    (B, T) int64 on the logits' device; greedy rows take the argmax at
+    every position."""
+    B, T, V = logits.shape
+    dev = logits.device
+    keys, steps, temperature, top_k, top_p = (
+        _on(a, dev) for a in (keys, steps, temperature, top_k, top_p))
+    st = (steps.to(torch.int64)[:, None]
+          + torch.arange(T, dtype=torch.int64, device=dev)[None])
+    toks = sample_tokens(
+        logits.reshape(B * T, V), keys.repeat_interleave(T, dim=0),
+        st.reshape(-1), temperature.repeat_interleave(T),
+        top_k.repeat_interleave(T), top_p.repeat_interleave(T))
+    return toks.reshape(B, T)
 
 
 def slot_arrays(n_slots: int) -> dict:

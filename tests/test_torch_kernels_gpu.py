@@ -19,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import block_combine, flash_attention, quantize, ref
+from repro_torch.kernels import (block_combine, flash_attention, quantize,
+                                 ref, ring_attention)
+from repro_torch.launch import step_fns
 
 pytestmark = pytest.mark.gpu
 
@@ -391,6 +393,214 @@ def test_per_row_kv_write_at_the_engine_shapes(cuda):
     _check_rows_write(k, v, rings, scales, pos, n)
     k, v, rings, scales = _rows_case(rng, 1, 256, 36, 64, 1024, "bf16", cuda)
     _check_rows_write(k, v, rings, scales, [900], [200])
+
+
+def test_per_row_kv_write_at_the_verify_shape(cuda):
+    """A speculative verify tick of MiniCPM-2B's slots (36 K/V heads of
+    head_dim 64, bf16, a ring of 4096): 8 rows of k + 1 = 5 tokens at mixed
+    positions writing 0, 1, 3 or 5 of them, two near the ring's end so
+    their writes wrap."""
+    rng = np.random.default_rng(13)
+    k, v, rings, scales = _rows_case(rng, 8, 5, 36, 64, 4096, "bf16", cuda)
+    _check_rows_write(k, v, rings, scales,
+                      [0, 4094, 100, 2047, 4095, 777, 3000, 12],
+                      [1, 5, 0, 3, 5, 1, 3, 0])
+
+
+def test_engine_speculation_runs_the_kernels_and_matches_plain(
+        cuda, monkeypatch):
+    """Reduced MiniCPM-2B with the int8 cache, speculating on the card:
+    one per-row write per layer for every decode or verify tick and
+    prefill chunk, two dequantizes for each, the streams those of plain
+    decoding and of the same run with the plain int8 versions."""
+    from repro_torch.configs.base import decode_config, get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine, SpecParams
+    cfg = dataclasses.replace(
+        decode_config(get_config("minicpm_2b", reduced=True)), kv_quant=True)
+    params = tf.init_params(cfg, 0, cuda)
+
+    def run(spec):
+        eng = ServingEngine(cfg, None, params, n_slots=3, max_len=64,
+                            prefill_chunk=16, device=cuda)
+        return eng.run(serve.synthetic_workload(
+            6, cfg.vocab_size, gap=1, seed=1, prompt_lens=(5, 40),
+            max_new=(4, 12), spec=spec, repetitive=True))
+
+    before = (quantize.quantize_int8_into.launches,
+              quantize.dequantize_int8.launches)
+    got = run(SpecParams(draft_k=4))
+    calls = cfg.n_layers * (got["decode_ticks"] + got["verify_ticks"]
+                            + got["prefill_chunks"])
+    assert got["verify_ticks"] > 0
+    assert (quantize.quantize_int8_into.launches - before[0],
+            quantize.dequantize_int8.launches - before[1]) == \
+        (calls, 2 * calls)
+    assert run(None)["tokens"] == got["tokens"]
+    monkeypatch.setattr(quantize, "quantize_int8_into",
+                        ref.quantize_int8_into_ref)
+    monkeypatch.setattr(quantize, "dequantize_int8", ref.dequantize_int8_ref)
+    assert run(SpecParams(draft_k=4))["tokens"] == got["tokens"]
+
+
+def test_engine_sampled_speculation_with_accepted_drafts(cuda):
+    """Reduced MiniCPM-2B with the int8 cache, sampled, drafting with a
+    draft model that is the target: drafts are accepted, and the tokens
+    each verify tick commits at positions t >= 1 give the plain sampled
+    streams on the card."""
+    from repro_torch.configs.base import decode_config, get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (DraftModelDrafter, SamplingParams,
+                                     ServingEngine, SpecParams)
+    cfg = dataclasses.replace(
+        decode_config(get_config("minicpm_2b", reduced=True)), kv_quant=True)
+    params = tf.init_params(cfg, 0, cuda)
+    sp = SamplingParams(temperature=0.5, top_k=3, seed=5)
+
+    def run(spec, drafter=None):
+        eng = ServingEngine(cfg, None, params, n_slots=3, max_len=64,
+                            prefill_chunk=16, device=cuda, drafter=drafter)
+        return eng.run(serve.synthetic_workload(
+            5, cfg.vocab_size, gap=1, seed=2, prompt_lens=(5, 30),
+            max_new=(6, 14), sampling=sp, spec=spec))
+
+    drafter = DraftModelDrafter(cfg, params, n_slots=3, max_len=64,
+                                device=cuda)
+    got = run(SpecParams(draft_k=4), drafter)
+    assert got["accepted_tokens"] > 0
+    assert got["sampled_tokens"] == got["total_tokens"]
+    assert got["tokens"] == run(None)["tokens"]
+
+
+def _ring_case(rng, B, T, H, KV, D, S, dt, device):
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(DTYPES[dt]).to(device)
+            for shape in ((B, T, H, D), (B, S, KV, D), (B, S, KV, D))]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [12, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("mask", [(None, None), (8, None), (None, 16)])
+def test_ring_attention_matches_plain(mask, rep, D, dt, cuda):
+    """Rows at a fresh ring, a wrapped ring and an inactive row, 1 to 33
+    queries: each output element within the flash kernel's tolerance of its
+    size plus its row's largest, over the queries with a position to read;
+    one launch a call."""
+    window, chunk = mask
+    rng = np.random.default_rng(D + rep)
+    for T in (1, 5, 33):
+        S = 64 if window is None else max(T, 13)
+        q, k, v = _ring_case(rng, 3, T, 2 * rep, 2, D, S, dt, cuda)
+        plan = torch.tensor([[0, 70, 30], [T, T, 0]], device=cuda)
+        before = ring_attention.ring_attention.launches
+        got = ring_attention.ring_attention(q, k, v, plan, window, chunk)
+        torch.cuda.synchronize()
+        assert ring_attention.ring_attention.launches == before + 1
+        want = ref.ring_attention_ref(q, k, v, plan, window, chunk)
+        qp = plan[0, :, None].cpu() + torch.arange(T)[None]
+        last = (plan[0] + plan[1] - 1).cpu()[:, None]
+        lo = torch.clamp(last - S + 1, min=0).expand_as(qp)
+        if window is not None:
+            lo = torch.maximum(lo, qp - window + 1)
+        if chunk is not None:
+            lo = torch.maximum(lo, qp // chunk * chunk)
+        keep = torch.minimum(qp, last) >= lo
+        g, w = got.double()[keep.to(cuda)], want.double()[keep.to(cuda)]
+        scale = w.abs() + w.abs().amax(-1, keepdim=True)
+        assert float(((g - w).abs() / scale).max()) <= \
+            flash_attention.FLASH_TOL[DTYPES[dt]]
+        assert bool((got[~keep.to(cuda)] == 0).all())
+
+
+def test_ring_attention_gives_a_query_the_same_bits_in_any_call(cuda):
+    """MiniCPM-2B's heads over a ring of 4096: the same queries in five
+    calls of one, a call of 5 and a call of 40 (a decode tick, a verify
+    call, a prefill chunk) give bitwise the same outputs."""
+    rng = np.random.default_rng(3)
+    q, k, v = _ring_case(rng, 8, 40, 36, 36, 64, 4096, "bf16", cuda)
+    pos = torch.tensor([0, 17, 1000, 1500, 2047, 3000, 4000, 33],
+                       device=cuda)
+    five = ring_attention.ring_attention(
+        q[:, :5].contiguous(), k, v, torch.stack([pos, torch.full_like(
+            pos, 5)]))
+    forty = ring_attention.ring_attention(
+        q, k, v, torch.stack([pos, torch.full_like(pos, 40)]))
+    for t in range(5):
+        one = ring_attention.ring_attention(
+            q[:, t:t + 1].contiguous(), k, v,
+            torch.stack([pos + t, torch.ones_like(pos)]))
+        _assert_bitwise(one[:, 0], five[:, t])
+        _assert_bitwise(one[:, 0], forty[:, t])
+
+
+def test_slot_steps_give_a_token_the_same_bits_in_any_call(cuda):
+    """Reduced MiniCPM-2B with the int8 cache: five tokens fed through one
+    verify call and through five decode ticks leave the same ring bytes
+    and logits, and a journal re-prefilled in a chunk leaves the bytes its
+    decode ticks wrote."""
+    from repro_torch.configs.base import decode_config, get_config
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(
+        decode_config(get_config("minicpm_2b", reduced=True)), kv_quant=True)
+    params = tf.init_params(cfg, 0, cuda)
+    prefill = step_fns.make_prefill_step(cfg)
+    rng = np.random.default_rng(4)
+    caches = tf.init_cache(cfg, 4, 96, device=cuda, per_slot=True)
+    for slot in range(4):
+        toks = rng.integers(1, cfg.vocab_size, 20 + 7 * slot)
+        caches = _prefill_all(prefill, params, caches, slot, toks, cuda)
+    seq = torch.from_numpy(rng.integers(1, cfg.vocab_size, (4, 5))).to(cuda)
+    clone = lambda cs: tuple({n: t.clone() for n, t in c.items()}  # noqa
+                             for c in cs)
+    with torch.no_grad():
+        dec, logits = clone(caches), []
+        for t in range(5):
+            lg, dec = tf.decode_step(params, cfg, {"tokens": seq[:, t:t + 1]},
+                                     dec, active=np.ones(4, bool))
+            logits.append(lg)
+        ver = clone(caches)
+        vl, old = tf.verify_forward(params, cfg, {"tokens": seq}, ver,
+                                    lengths=[5] * 4,
+                                    active=np.ones(4, bool))
+        ver = tf.commit_verify_caches(ver, old, [5] * 4, np.ones(4, bool))
+    for t in range(5):
+        _assert_bitwise(logits[t], vl[:, t])
+    for a, b in zip(dec, ver):
+        for n in ("k", "v", "ks", "vs"):
+            _assert_bitwise(a[n], b[n])
+    # a journal: slot 0 holds 20 prompt tokens, then 5 decoded ones; slot
+    # 3 takes prompt + journal in prefill chunks
+    prompt = rng.integers(1, cfg.vocab_size, 20)
+    first = _prefill_all(prefill, params, tf.init_cache(
+        cfg, 4, 96, device=cuda, per_slot=True), 0, prompt, cuda)
+    act = np.zeros(4, bool)
+    act[0] = True
+    journal = rng.integers(1, cfg.vocab_size, 5)
+    with torch.no_grad():
+        for t in journal:
+            tk = torch.zeros((4, 1), dtype=torch.int64, device=cuda)
+            tk[0, 0] = int(t)
+            _, first = tf.decode_step(params, cfg, {"tokens": tk}, first,
+                                      active=act)
+    first = _prefill_all(prefill, params, first, 3,
+                         np.concatenate([prompt, journal]), cuda)
+    for c in first:
+        for n in ("k", "v", "ks", "vs"):
+            _assert_bitwise(c[n][:, 0, :25], c[n][:, 3, :25])
+
+
+def _prefill_all(prefill, params, caches, slot, toks, device, chunk=16):
+    pos = 0
+    while pos < len(toks):
+        c = min(chunk, len(toks) - pos)
+        buf = torch.zeros((1, chunk), dtype=torch.int64, device=device)
+        buf[0, :c] = torch.from_numpy(np.asarray(toks[pos:pos + c]))
+        _, caches = prefill(params, buf, caches, slot, c, resume=pos > 0)
+        pos += c
+    return caches
 
 
 def test_launch_counters_count_only_launches(cuda):

@@ -420,7 +420,7 @@ def test_serve_cli_runs_and_refuses_unported_flags(capsys):
                       "--batch", "2", "--steps", "3", "--cache-len", "8"])
     assert run.tokens.shape == (2, 3) and len(run.step_seconds) == 3
     assert "decoded 6 tokens" in capsys.readouterr().out
-    for flag in ("--speculate", "--mesh=1x2", "--trace-out"):
+    for flag in ("--replicas=2", "--mesh=1x2", "--trace-out"):
         with pytest.raises(SystemExit) as e:
             serve.main(["--reduced", "--device", "cpu", flag])
         assert e.value.code == 2

@@ -442,15 +442,14 @@ def test_poisoned_logits_commit_nothing():
 
 def test_engine_refuses_what_is_not_ported():
     cfg, eng = _engine()
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        eng.run([serving.Request(0, (1, 2), 2, spec=serving.SpecParams())])
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        eng.run([], policy=serving.SLOPolicy())
     p = _params("tiny")[3]
-    for kw, item in ((dict(prefix_cache=True), "item 2b"),
-                     (dict(tracer=object()), "item 6")):
+    for kw, item in ((dict(metrics=object()), "item 6"),
+                     (dict(tracer=object()), "item 6"),
+                     (dict(pcfg=base.ParallelConfig(tp_shards=2)),
+                      "item 4")):
+        kw.setdefault("pcfg", None)
         with pytest.raises(NotImplementedError, match=item):
-            serving.ServingEngine(cfg, None, p, device="cpu", **kw)
+            serving.ServingEngine(cfg, params=p, device="cpu", **kw)
     with pytest.raises(ValueError, match="exceeds"):
         eng.run([serving.Request(0, (1,) * 4, max_new_tokens=30)])
     with pytest.raises(NotImplementedError, match="item 7"):
@@ -462,8 +461,8 @@ def test_engine_refuses_what_is_not_ported():
 
 def test_continuous_cli_runs_and_refuses_later_flags(capsys, tmp_path):
     """``--continuous`` end to end on reduced MiniCPM-2B on the CPU (its
-    decode config, greedy then sampled); the flags of items 2b, 2c, 6 and
-    4 stay refused with their item; ``--autotune-cache`` sets the cache
+    decode config, greedy then sampled); the flags of items 2c, 6 and 4
+    stay refused with their item; ``--autotune-cache`` sets the cache
     path."""
     argv = ["--arch", "minicpm_2b", "--reduced", "--continuous",
             "--requests", "6", "--slots", "3", "--prompt-len", "20", "80",
@@ -484,8 +483,8 @@ def test_continuous_cli_runs_and_refuses_later_flags(capsys, tmp_path):
         assert autotune.default_cache_path() == path
     finally:
         autotune.set_cache_path(None)
-    for flag, item in (("--speculate", "item 2b"), ("--policy=slo", "2b"),
-                       ("--prefix-cache", "2b"), ("--replicas=2", "2c"),
+    for flag, item in (("--heartbeat-misses=2", "item 2c"),
+                       ("--rejoin-backoff=1", "2c"), ("--replicas=2", "2c"),
                        ("--chaos-seed=1", "2c"), ("--trace-out=x", "item 6"),
                        ("--mesh=1x2", "item 4")):
         with pytest.raises(SystemExit) as e:
