@@ -99,10 +99,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    attention kernel ``ring_attention`` (which replaces no TPU kernel: it
    stands where the reference's einsums do, and gives a query the same bits
    in any call) against its plain version within ``FLASH_TOL``, bitwise the
-   same for a query in calls of 1, 5 and 40, and held and timed at a decode
-   tick's, a verify tick's and a prefill chunk's shape, at phase 5's step
-   and at phase 9's tick and chunk, beside its bound, its plain version
-   and SDPA; then serving workload
+   same for a query in calls of 1, 5 and 40, and over a wrapped ring in
+   calls of 1, 5, 40 and 512 at offsets (1 and 2 query heads a K/V head),
+   and held and timed at a decode tick's, a verify tick's and a prefill
+   chunk's shape, at phase 5's step and at phase 9's tick and chunk, beside
+   its bound, its plain version and SDPA; then serving workload
    W10 (12 requests a tick apart, a shared 1024-token system prompt and a
    repetitive suffix of 64 to 448 tokens, 16 to 32 new tokens, requests 0-7
    BATCH and 8-11 INTERACTIVE with a TTFT deadline of 8 ticks): the fused
@@ -2131,20 +2132,6 @@ def ring_cases(gen, B, T, H, KV, D, S, dt, dev):
     return q, k, v
 
 
-def ring_valid(plan, T: int, S: int, window, chunk) -> torch.Tensor:
-    """(B, T) bools: the queries that have a position to read (the
-    kernel writes zeros for the others, the plain version averages V)."""
-    pos, n = plan[0].cpu(), plan[1].cpu()
-    qp = pos[:, None] + torch.arange(T)[None]
-    last = (pos + n - 1)[:, None]
-    lo = torch.clamp(last - S + 1, min=0).expand_as(qp).clone()
-    if window is not None:
-        lo = torch.maximum(lo, qp - window + 1)
-    if chunk is not None:
-        lo = torch.maximum(lo, qp // chunk * chunk)
-    return torch.minimum(qp, last) >= lo
-
-
 def ring_err(got, want, keep) -> float:
     """The largest |got - want| / (|want| + max |want| over the query's
     head_dim) over the queries in ``keep``: the flash kernel's rule."""
@@ -2155,16 +2142,67 @@ def ring_err(got, want, keep) -> float:
     return float(((g - w).abs() / scale.clamp_min(1e-300)).max())
 
 
+def ring_shapes() -> dict:
+    """The slot attention's shapes on the main path, ``{name: (rows,
+    queries, ring, start positions)}``: phase 10's verify and decode ticks
+    and chunk; phase 5's last step; phase 9's decode tick (16 slots at
+    prompt lengths of 256 to 2560) and a 1024-token chunk."""
+    spec_pos = [1400, 1100, 1300, 1250, 1200, 1350, 1150, 1450]
+    return {
+        "verify": (SPEC["slots"], SPEC["draft_k"] + 1, SPEC["cache_len"],
+                   spec_pos),
+        "decode": (SPEC["slots"], 1, SPEC["cache_len"], spec_pos),
+        "prefill": (1, SPEC["prefill_chunk"], SPEC["cache_len"],
+                    [2 * SPEC["prefill_chunk"]]),
+        "decode_phase5": (DECODE["batch"], 1, DECODE["cache_len"],
+                          [DECODE["steps"] - 1] * DECODE["batch"]),
+        "decode_phase9": (SERVE["slots"], 1, SERVE["cache_len"],
+                          [300, 2580, 1200, 900, 2000, 1700, 450, 2300, 800,
+                           1500, 2550, 600, 1900, 1100, 350, 2200]),
+        "prefill_phase9": (1, SERVE["prefill_chunk"], SERVE["cache_len"],
+                           [SERVE["prefill_chunk"]]),
+    }
+
+
+def ring_bound(plan, T, S, H, KV, D, dt) -> tuple:
+    """(bound ms, what bounds it, bytes, operations) of one call: its
+    bytes over the HBM rate, its operations over the dense bf16
+    tensor-core rate (bf16 products summed in f32) or the f32 rate."""
+    nbytes, nops = ring_attention.work(plan, T, S, H, KV, D,
+                                       itemsize=torch.finfo(dt).bits // 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / (BF16_TC_OPS_PER_S if dt == torch.bfloat16
+                    else F32_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, nops)
+
+
+def ring_same_bits(gen, H, KV, window, dev) -> int:
+    """The same five queries of each of 4 rows over a wrapped ring of 4096
+    (positions past 4096) in calls of 1, 5, 40 and 512 queries at offsets
+    (``ring_attention.same_bits_pairs``), bitwise equal. Returns the
+    queries compared."""
+    B, S, D = 4, 4096, 64
+    q, k, v = ring_cases(gen, B, 512, H, KV, D, S, torch.bfloat16, dev)
+    first = torch.tensor([5000, 6100, 4200, 8000], device=dev) - 37
+    for what, one, got in ring_attention.same_bits_pairs(q, k, v, first,
+                                                         window):
+        check_bitwise(one, got, f"ring_attention H={H} KV={KV} "
+                      f"window={window} {what}")
+    return 5 * B * H
+
+
 def ring_attention_phase(dev) -> dict:
     """The slot attention kernel against its plain version (each output
     element within ``FLASH_TOL`` of its size plus its row's largest, over
     the queries that have a position to read), over dtypes, head_dims 12,
     64 and 128, 1 and 2 query heads per K/V head, windows and chunks,
     wrapped rings and an inactive row; the same queries in one call of 5
-    and five calls of 1 and in a call of 40, bitwise equal; then timed at
-    the paths' shapes (a decode tick, a verify tick, a prefill chunk; phase
-    5's step; phase 9's decode tick and chunk) beside its bound, the plain
-    version and SDPA on the same inputs."""
+    and five calls of 1 and in a call of 40, bitwise equal; the same over a
+    wrapped ring in calls of 1, 5, 40 and 512 at offsets, with 1 and 2
+    query heads per K/V head; then timed at the paths' shapes
+    (``ring_shapes``) beside its bound, the plain version and SDPA on the
+    same inputs."""
     gen = torch.Generator(device=dev).manual_seed(12)
     worst = {dt: 0.0 for dt in fa.FLASH_TOL}
     checks = 0
@@ -2178,7 +2216,7 @@ def ring_attention_phase(dev) -> dict:
                                              dt, dev)
                         plan = torch.tensor([[0, 70, 30], [T, T, 0]],
                                             device=dev)
-                        keep = ring_valid(plan, T, S, window, chunk)
+                        keep = ring_attention.valid(plan, T, S, window, chunk)
                         got = ring_attention.ring_attention(
                             q, k, v, plan, window, chunk)
                         want = ref.ring_attention_ref(q, k, v, plan, window,
@@ -2207,36 +2245,22 @@ def ring_attention_phase(dev) -> dict:
                       "a call of 1 against a call of 5")
         check_bitwise(one[:, 0], forty[:, t], f"ring_attention query {t}, "
                       "a call of 1 against a call of 40")
+    del q, k, v, five, forty, one
+    same = sum(ring_same_bits(gen, H, KV, window, dev)
+               for H, KV in ((36, 36), (36, 18)) for window in (None, 1000))
     log(f"  ring_attention: {checks} cases within tolerance of the plain "
         "version (worst " + ", ".join(f"{str(dt)[6:]} {w:.2e}"
                                        for dt, w in worst.items())
-        + "); a query's output bitwise the same in calls of 1, 5 and 40")
-    del q, k, v, five, forty, one
+        + "); a query's output bitwise the same in calls of 1, 5 and 40, "
+        f"and ({same} queries) in calls of 1, 5, 40 and 512 at offsets over "
+        "a wrapped ring")
     cfg = get_config(SERVE["arch"])
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
-    spec_pos = [1400, 1100, 1300, 1250, 1200, 1350, 1150, 1450]
-    # (rows, queries, ring, start positions): phase 10's verify and decode
-    # ticks and chunk; phase 5's last step; phase 9's decode tick (16 slots
-    # at prompt lengths of 256 to 2560) and a 1024-token chunk
-    shapes = {
-        "verify": (SPEC["slots"], SPEC["draft_k"] + 1, SPEC["cache_len"],
-                   spec_pos),
-        "decode": (SPEC["slots"], 1, SPEC["cache_len"], spec_pos),
-        "prefill": (1, SPEC["prefill_chunk"], SPEC["cache_len"],
-                    [2 * SPEC["prefill_chunk"]]),
-        "decode_phase5": (DECODE["batch"], 1, DECODE["cache_len"],
-                          [DECODE["steps"] - 1] * DECODE["batch"]),
-        "decode_phase9": (SERVE["slots"], 1, SERVE["cache_len"],
-                          [300, 2580, 1200, 900, 2000, 1700, 450, 2300, 800,
-                           1500, 2550, 600, 1900, 1100, 350, 2200]),
-        "prefill_phase9": (1, SERVE["prefill_chunk"], SERVE["cache_len"],
-                           [SERVE["prefill_chunk"]]),
-    }
     out = {}
-    for what, (B, T, S, pos) in shapes.items():
+    for what, (B, T, S, pos) in ring_shapes().items():
         q, k, v = ring_cases(gen, B, T, H, KV, D, S, torch.bfloat16, dev)
         plan = torch.tensor([pos, [T] * B], device=dev)
-        keep = ring_valid(plan, T, S, None, None)
+        keep = ring_attention.valid(plan, T, S, None, None)
         got = ring_attention.ring_attention(q, k, v, plan)
         want = ref.ring_attention_ref(q, k, v, plan)
         err = ring_err(got, want, keep)
@@ -2254,24 +2278,15 @@ def ring_attention_phase(dev) -> dict:
                       .scaled_dot_product_attention(qt, kt, vt,
                                                     attn_mask=mask))
         t_p = time_ms(lambda: ref.ring_attention_ref(q, k, v, plan), reps=5)
-        reads = sum(min(p + T, S) for p in pos)     # valid rows per batch row
-        nbytes = 2 * (q.numel() * 2) + 2 * reads * KV * D * 2
-        nops = 4 * D * H * int(sum(min(p + t + 1, S) for p in pos
-                                   for t in range(T)))
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        # bf16 products summed in f32: the dense bf16 tensor-core rate
-        t_ops = nops / (BF16_TC_OPS_PER_S if q.dtype == torch.bfloat16
-                        else F32_OPS_PER_S) * 1e3
+        bound, by, nbytes, nops = ring_bound(plan, T, S, H, KV, D, q.dtype)
         out[what] = {"shape": [list(q.shape), list(k.shape)], "pos": pos,
+                     "route": ring_attention.route(q.dtype, D, S),
                      "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations", "bytes": nbytes, "ops": nops,
-                     "err_share": err, "max_abs_err": abs_err}
+                     "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                     "ops": nops, "err_share": err, "max_abs_err": abs_err}
         log(f"  ring_attention {what} {out[what]['shape']}: kernel "
             f"{t_k:.4f} ms, plain {t_p:.4f} ms, SDPA {t_l:.4f} ms, bound "
-            f"{out[what]['bound_ms']:.4f} ms ({out[what]['bound_by']}); "
-            f"error {err:.2e} of |want| + row max")
+            f"{bound:.4f} ms ({by}); error {err:.2e} of |want| + row max")
         del q, k, v, qt, kt, vt, got, want
     src, replaces = KERNEL_FILES["ring_attention"]
     head = out["verify"]
@@ -2281,7 +2296,8 @@ def ring_attention_phase(dev) -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
-            "checks": checks, "worst_err_share": {
+            "checks": checks, "same_bits_queries": same,
+            "worst_err_share": {
                 str(dt)[6:]: w for dt, w in worst.items()}, "shapes": out}
 
 

@@ -480,39 +480,74 @@ def _ring_case(rng, B, T, H, KV, D, S, dt, device):
             for shape in ((B, T, H, D), (B, S, KV, D), (B, S, KV, D))]
 
 
+def _check_ring_close(got, want, keep, dt):
+    g, w = got.double()[keep], want.double()[keep]
+    scale = w.abs() + w.abs().amax(-1, keepdim=True)
+    assert float(((g - w).abs() / scale).max()) <= \
+        flash_attention.FLASH_TOL[dt]
+    assert bool((got[~keep] == 0).all())
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("D", [12, 64, 128])
 @pytest.mark.parametrize("rep", [1, 2])
 @pytest.mark.parametrize("mask", [(None, None), (8, None), (None, 16)])
 def test_ring_attention_matches_plain(mask, rep, D, dt, cuda):
-    """Rows at a fresh ring, a wrapped ring and an inactive row, 1 to 33
-    queries: each output element within the flash kernel's tolerance of its
-    size plus its row's largest, over the queries with a position to read;
-    one launch a call."""
+    """Rows at a fresh ring, a wrapped ring and an inactive row, 1 to 200
+    queries (more than one 64-row tile, and more than the ring holds),
+    rings of a whole number of key blocks and not: each output element
+    within the flash kernel's tolerance of its size plus its row's largest,
+    over the queries with a position to read; one launch a call."""
     window, chunk = mask
     rng = np.random.default_rng(D + rep)
-    for T in (1, 5, 33):
-        S = 64 if window is None else max(T, 13)
-        q, k, v = _ring_case(rng, 3, T, 2 * rep, 2, D, S, dt, cuda)
+    for T in (1, 5, 33, 64, 200):
+        for S in ((64, 100) if window is None else (max(T, 13),)):
+            q, k, v = _ring_case(rng, 3, T, 2 * rep, 2, D, S, dt, cuda)
+            plan = torch.tensor([[0, 70, 30], [T, T, 0]], device=cuda)
+            before = ring_attention.ring_attention.launches
+            got = ring_attention.ring_attention(q, k, v, plan, window, chunk)
+            torch.cuda.synchronize()
+            assert ring_attention.ring_attention.launches == before + 1
+            want = ref.ring_attention_ref(q, k, v, plan, window, chunk)
+            keep = ring_attention.valid(plan, T, S, window, chunk)
+            _check_ring_close(got, want, keep.to(cuda), DTYPES[dt])
+
+
+@pytest.mark.parametrize("dt, D", [("f32", 64), ("f32", 12), ("bf16", 192),
+                                   ("bf16", 33)])
+def test_ring_attention_keeps_the_cuda_core_kernel(dt, D, cuda):
+    """f32, an odd head dim and one above 128 take the CUDA-core kernel
+    (TF32 would break f32's limit), and it matches the plain version."""
+    assert ring_attention.route(DTYPES[dt], D, 64) == "cuda_cores"
+    rng = np.random.default_rng(D)
+    for T, window in ((1, None), (40, None), (40, 8)):
+        q, k, v = _ring_case(rng, 3, T, 4, 2, D, 64, dt, cuda)
         plan = torch.tensor([[0, 70, 30], [T, T, 0]], device=cuda)
         before = ring_attention.ring_attention.launches
-        got = ring_attention.ring_attention(q, k, v, plan, window, chunk)
+        got = ring_attention.ring_attention(q, k, v, plan, window)
         torch.cuda.synchronize()
         assert ring_attention.ring_attention.launches == before + 1
-        want = ref.ring_attention_ref(q, k, v, plan, window, chunk)
-        qp = plan[0, :, None].cpu() + torch.arange(T)[None]
-        last = (plan[0] + plan[1] - 1).cpu()[:, None]
-        lo = torch.clamp(last - S + 1, min=0).expand_as(qp)
-        if window is not None:
-            lo = torch.maximum(lo, qp - window + 1)
-        if chunk is not None:
-            lo = torch.maximum(lo, qp // chunk * chunk)
-        keep = torch.minimum(qp, last) >= lo
-        g, w = got.double()[keep.to(cuda)], want.double()[keep.to(cuda)]
-        scale = w.abs() + w.abs().amax(-1, keepdim=True)
-        assert float(((g - w).abs() / scale).max()) <= \
-            flash_attention.FLASH_TOL[DTYPES[dt]]
-        assert bool((got[~keep.to(cuda)] == 0).all())
+        want = ref.ring_attention_ref(q, k, v, plan, window)
+        keep = ring_attention.valid(plan, T, 64, window)
+        _check_ring_close(got, want, keep.to(cuda), DTYPES[dt])
+
+
+def test_ring_attention_routes_give_the_same_bits(cuda):
+    """The tensor-core kernel by TMA and by cp.async on the same inputs:
+    the copy route moves bytes only."""
+    rng = np.random.default_rng(5)
+    for T, rep, D in ((1, 1, 64), (77, 2, 64), (9, 1, 128)):
+        q, k, v = _ring_case(rng, 3, T, 4 * rep, 4, D, 256, "bf16", cuda)
+        plan = torch.tensor([[0, 300, 100], [T, T, 0]], device=cuda)
+        outs = []
+        for name in ("wgmma_tma", "wgmma_cp_async"):
+            out = torch.empty_like(q)
+            args = ring_attention._call_args(q, k, v, out, plan, None, None)
+            assert ring_attention._fn("ra_forward")(
+                ring_attention.ROUTES.index(name), *args[1:],
+                torch.cuda.current_stream().cuda_stream) == 0
+            outs.append(out)
+        _assert_bitwise(outs[1], outs[0])
 
 
 def test_ring_attention_gives_a_query_the_same_bits_in_any_call(cuda):
@@ -534,6 +569,16 @@ def test_ring_attention_gives_a_query_the_same_bits_in_any_call(cuda):
             torch.stack([pos + t, torch.ones_like(pos)]))
         _assert_bitwise(one[:, 0], five[:, t])
         _assert_bitwise(one[:, 0], forty[:, t])
+    # over a wrapped ring in calls of 1, 5, 40 and 512 at offsets
+    # (ring_attention.same_bits_pairs), H = KV and H = 2 KV, with and
+    # without a window
+    first = torch.tensor([5000, 6100, 4200, 8000], device=cuda) - 37
+    for H, KV in ((36, 36), (36, 18)):
+        q, k, v = _ring_case(rng, 4, 512, H, KV, 64, 4096, "bf16", cuda)
+        for window in (None, 1000):
+            for _, one, got in ring_attention.same_bits_pairs(q, k, v, first,
+                                                              window):
+                _assert_bitwise(one, got)
 
 
 def test_slot_steps_give_a_token_the_same_bits_in_any_call(cuda):

@@ -14,10 +14,16 @@ that tree's kernels there), draws the seed-0 weights on the card, runs
 reads the host cost of one ``quantize_int8`` call at the decode path's
 shape, one token's (576, 64) bf16 rows (the host clock over 1000 calls
 issued without a synchronize). The runs go other, this, this, other, so
-that neither tree always runs first. It prints the card's name and power
-limit, each run's median step, its traced step's device operations and
-busy time and the host cost, and one JSON line; it fails if the trees'
-tokens differ.
+that neither tree always runs first. Each run keeps its steps' logits
+(under ``build/decode_ab/``, removed at the end), and every run is held
+against the first run of the other tree by phase 5's rule
+(``chip_smoke.greedy_gap``): over the steps fed the same tokens, logits
+within ``LOGIT_TOL`` of the largest, and greedy tokens equal wherever the
+other tree's top-2 margin is clear of twice that (two kernels that round
+differently may part at a near-tie on random weights). It prints the
+card's name and power limit, each run's median step, its traced step's
+device operations and busy time and the host cost, each run's gap, and
+one JSON line; it fails if a gap breaks the rule.
 """
 
 from __future__ import annotations
@@ -29,12 +35,13 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DECODE = dict(arch="minicpm_2b", batch=16, cache_len=8192, seed=0)
 
 
-def child(root: str, steps: int) -> dict:
+def child(root: str, steps: int, save: str) -> dict:
     sys.path.insert(0, os.path.join(os.path.abspath(root), "src"))
     import numpy as np
     import torch
@@ -49,7 +56,10 @@ def child(root: str, steps: int) -> dict:
     args = argparse.Namespace(**DECODE, steps=steps, reduced=False,
                               device="cuda")
     params = tf.init_params(cfg, args.seed, "cuda")
-    run = serve.serve_loop(args, cfg, params)
+    run = serve.serve_loop(args, cfg, params, keep_logits=True)
+    torch.save({"tokens": torch.from_numpy(run.tokens),
+                "logits": run.logits.cpu()}, save)
+    run.logits = None
     steady = float(np.median(run.step_seconds[1:]))
     step = step_fns.make_serve_step(cfg)
     caches = tf.init_cache(cfg, args.batch, args.cache_len, device="cuda")
@@ -86,21 +96,25 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other")
     ap.add_argument("--steps", type=int, default=32)
-    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--child", metavar="SAVE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.other, args.steps)))
+        print(json.dumps(child(args.other, args.steps, args.child)))
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    runs = []
+    runs, saved = [], []
     other = os.path.abspath(args.other)
-    for side, root in (("other", other), ("this", ROOT), ("this", ROOT),
-                       ("other", other)):
+    out_dir = os.path.join(ROOT, "build", "decode_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    for i, (side, root) in enumerate((("other", other), ("this", ROOT),
+                                      ("this", ROOT), ("other", other))):
+        saved.append(os.path.join(out_dir, f"run{i}.pt"))
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              root, "--steps", str(args.steps), "--child"],
+                              root, "--steps", str(args.steps), "--child",
+                              saved[-1]],
                              capture_output=True, text=True, cwd=root)
         if out.returncode != 0:
             print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
@@ -112,11 +126,44 @@ def main() -> int:
               f"traced step {res['device_ops_per_step']} device operations,"
               f" {res['device_busy_ms']:.3f} ms busy; quantize_int8 host "
               f"{res['quantize_int8_host_ms']:.4f} ms a call", flush=True)
-    if len({r["tokens_sha256"] for r in runs}) != 1:
-        print("the two trees decoded different tokens", file=sys.stderr)
-        return 1
+    ok = compare(runs, saved)
     print(json.dumps({"card": card, "runs": runs}))
-    return 0
+    return 0 if ok else 1
+
+
+def compare(runs: list, saved: list) -> bool:
+    """Each run against the first run of the other tree, by phase 5's
+    margin rule; sets each run's ``gap``. Removes the saved logits."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke as cs
+
+    def load(path):
+        got = torch.load(path)
+        os.remove(path)
+        return types.SimpleNamespace(tokens=got["tokens"].numpy(),
+                                     logits=got["logits"])
+
+    first = {side: next(i for i, r in enumerate(runs) if r["side"] == side)
+             for side in ("this", "other")}
+    want = {side: load(saved[i]) for side, i in first.items()}
+    ok = True
+    for i, r in enumerate(runs):
+        against = "other" if r["side"] == "this" else "this"
+        got = want[r["side"]] if i == first[r["side"]] else load(saved[i])
+        gap = cs.greedy_gap(got, want[against], cs.LOGIT_TOL)
+        r["gap"] = dict(gap, against=f"run {first[against]}")
+        good = not gap["wrong_tokens"] and gap["err_share"] <= cs.LOGIT_TOL
+        ok = ok and good
+        print(f"  run {i} ({r['side']}) against run {first[against]}: logit "
+              f"error {gap['err_share']:.3e} of max|logit| (limit "
+              f"{cs.LOGIT_TOL:.3e}) over {gap['steps']} steps fed the same "
+              f"tokens, {gap['clear_tokens']} clear-margin tokens, "
+              f"{gap['wrong_tokens']} of them differ; tokens all equal: "
+              f"{gap['same_tokens']}" + ("" if good else " (BROKEN)"),
+              flush=True)
+    return ok
 
 
 if __name__ == "__main__":
