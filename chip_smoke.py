@@ -120,11 +120,32 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    stream bitwise A's; and B again with its decode and verify calls timed
    and, on a verify tick that rejects a draft, the rejected tokens' ring
    slots bitwise their bytes before the call; each run's ticks, wall,
-   tokens/s and TTFT, the peak memory and the phase's seconds.
+   tokens/s and TTFT, the peak memory and the phase's seconds;
+11. the replica fleet under chaos at full width, on phase 9's weights:
+   ``FleetRunner`` over 3 replicas (engine sessions) of 4 slots of a 4096
+   ring, prefill chunks of 512, workload W11 (12 requests a tick apart,
+   prompts of 256 to 1024 tokens, 6 to 12 new tokens, the odd ones
+   sampled): the undisturbed ``engine.run``, then (a) replica 1 killed at
+   tick 5, (b) replica 1 flapping for 8 ticks while replica 0 straggles at
+   factor 2 for 6 (it must rejoin), (c) replica 2 poisoned at tick 6 (NaN
+   in its active slots' f32 scales), (d) (b) again, (e) (a) with a
+   ``Tracer`` and live metrics every 4 ticks; every run's streams bitwise
+   the undisturbed run's with failovers, one fused write and one ring
+   attention per layer for every decode tick and prefill chunk and two
+   dequantizes for each; (a) and (b) free a dead replica's caches and (b)
+   comes back to within a replica's caches of its memory after the rejoin;
+   (c) is quarantined through non-finite logits out of the card's kernels
+   with nothing of the poisoned tick committed; (e) writes a Chrome trace
+   under ``build/`` that reads back, its failover events counting as the
+   reference's test counts them; then (b)'s per-replica stats rows reduced
+   over its members at p = 3, 2, 3 (``plan_remesh``) on ``LocalTransport``
+   under an installed probe, each sum numpy's, and the probe's alpha-beta
+   fit (of the stacked transport on one card, not of a link) or the
+   fitter's refusal.
 
-In phases 3, 5, 7, 8, 9 and 10 the kernels' launch counters are zeroed just
-before the main path and read just after, and must show that the kernels
-carried it.
+In phases 3, 5, 7, 8, 9, 10 and 11 the kernels' launch counters are zeroed
+just before the main path and read just after, and must show that the
+kernels carried it.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
 raises before that line. Without a CUDA device it exits nonzero and prints
@@ -136,6 +157,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -165,7 +187,10 @@ from repro_torch.kernels import _build, block_combine, quantize, ref  # noqa: E4
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ring_attention  # noqa: E402
 from repro_torch.launch import serve, step_fns, train  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.runtime.chaos import Fault, FaultPlan  # noqa: E402
 from repro_torch.serving import (DraftModelDrafter,  # noqa: E402
+                                 EngineSession, FleetRunner, PoisonedLogits,
                                  PriorityClass, SamplingParams,
                                  ServingEngine, SLOParams, SpecParams,
                                  STATS_FIELDS, make_policy,
@@ -237,6 +262,18 @@ SPEC = dict(slots=8, cache_len=4096, prefill_chunk=512, prefix_nodes=16,
             requests=12, gap=1, seed=1, shared_prefix=1024,
             suffix=(64, 448), max_new=(16, 32), batch=8, deadline_ticks=8,
             draft_k=4, draft_layers=2, draft_seed=7, draft_requests=4)
+# phase 11: the replica fleet under chaos on phase 9's model: 3 replicas of
+# 4 slots of a 4096 ring (a replica's int8 caches are 3.2 GB), chunks of
+# 512; W11: 12 requests a tick apart, prompts of 256-1024 tokens, 6-12 new
+# tokens (cut from 16-32 to keep the phase under 75 s: it took 74 s at
+# 16-32, 83 s at 12-24 and 78 s at 8-16 on H100 hosts of varying speed,
+# PERF.md section 6), the odd ones sampled as in the reference's chaos
+# test (tests/test_chaos.py); a heartbeat deadline of 2 ticks, a rejoin
+# probation of 1 tick, live metrics every 4 ticks in the traced run
+FLEET = dict(replicas=3, slots=4, cache_len=4096, prefill_chunk=512,
+             requests=12, gap=1, seed=3, prompt_lens=(256, 1024),
+             max_new=(6, 12), timeout=2.0, rejoin_backoff=1.0,
+             metrics_every=4)
 # phase 7: MiniCPM-2B training, cut from the reference's train_4k cell
 # (seq 4096, global batch 256) to the batch one 80 GB card holds
 TRAIN = dict(arch="minicpm_2b", seq_len=4096, global_batch=4, accum=1,
@@ -2560,6 +2597,358 @@ def spec_phase(dev, cfg, params) -> dict:
     return res
 
 
+# ------------------------------------------------------ the fleet under chaos
+
+def w11(vocab: int) -> list:
+    """Workload W11: ``FLEET["requests"]`` requests a tick apart, the odd
+    ones sampled (seed 11 + rid, temperature 0.9, top-k 20)."""
+    reqs = serve.synthetic_workload(
+        FLEET["requests"], vocab, gap=FLEET["gap"], seed=FLEET["seed"],
+        prompt_lens=FLEET["prompt_lens"], max_new=FLEET["max_new"])
+    for r in reqs:
+        if r.rid % 2:
+            r.sampling = SamplingParams(seed=11 + r.rid, temperature=0.9,
+                                        top_k=20)
+    return reqs
+
+
+@contextlib.contextmanager
+def fleet_watch(engine, watch: dict):
+    """Count the engine's prefill and decode calls; log every session
+    tick's stats row by (tick, replica); on a tick that raises
+    ``PoisonedLogits``, note the poisoned requests' journal lengths before
+    and after the tick and the ``ring_attention`` launches it made; and the
+    device memory around each replica's discard and rejoin. The session
+    and runner methods are wrapped on their classes (no reference cycle
+    keeps a discarded session's caches alive)."""
+    saved = (engine._prefill, engine._decode, EngineSession.tick,
+             FleetRunner._discard, FleetRunner._rebalance)
+
+    def counted(fn, key):
+        def call(*a, **kw):
+            watch["calls"][key] += 1
+            return fn(*a, **kw)
+        return call
+
+    def tick(sess):
+        held = {r.rid: len(r.tokens) for r in sess.sched.active.values()}
+        ring0 = WRAPPERS["ring_attention"].launches
+        try:
+            row = saved[2](sess)
+        except PoisonedLogits as e:
+            now = {r.rid: len(r.tokens) for r in sess.sched.active.values()}
+            watch["poisoned"].append({
+                "replica": sess.trace_replica, "tick": sess.now,
+                "slots": list(e.slots), "rids": list(e.rids),
+                "journal_before": [held[r] for r in e.rids],
+                "journal_after": [now[r] for r in e.rids],
+                "ring_attention_launches": (WRAPPERS["ring_attention"]
+                                            .launches - ring0),
+                "device": sess.caches[0]["k"].device.type})
+            raise
+        watch["rows"].append((sess.now - 1, sess.trace_replica,
+                              list(row[:len(STATS_FIELDS)])))
+        return row
+
+    def memory(fn, kind):
+        def call(runner, replica):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            fn(runner, replica)
+            torch.cuda.synchronize()
+            watch["memory"].append({
+                "event": kind, "replica": replica, "tick": runner.now,
+                "before": before, "after": torch.cuda.memory_allocated()})
+        return call
+
+    engine._prefill = counted(saved[0], "prefill")
+    engine._decode = counted(saved[1], "decode")
+    EngineSession.tick = tick
+    FleetRunner._discard = memory(saved[3], "discard")
+    FleetRunner._rebalance = memory(saved[4], "rejoin")
+    try:
+        yield
+    finally:
+        engine._prefill, engine._decode = saved[:2]
+        EngineSession.tick = saved[2]
+        FleetRunner._discard, FleetRunner._rebalance = saved[3:]
+
+
+def fleet_run(engine, name: str, faults, want: dict, L: int) -> tuple:
+    """One ``FleetRunner`` run of W11 under ``faults``: its streams bitwise
+    ``want``'s, failovers above 0, and one fused write and one ring
+    attention per layer for every decode tick and prefill chunk, two
+    dequantizes for each; the device memory back at its level before the
+    run once the runner is dropped. Returns (report, watch)."""
+    watch = {"calls": {"prefill": 0, "decode": 0}, "rows": [],
+             "poisoned": [], "memory": []}
+    torch.cuda.synchronize()
+    level = torch.cuda.memory_allocated()
+    runner = FleetRunner(engine, FLEET["replicas"], plan=FaultPlan(faults),
+                         timeout_s=FLEET["timeout"],
+                         rejoin_backoff_s=FLEET["rejoin_backoff"])
+    torch.cuda.synchronize()
+    zero_counters()
+    with fleet_watch(engine, watch):
+        rep = runner.run(w11(engine.cfg.vocab_size))
+    torch.cuda.synchronize()
+    launches = counters()
+    del runner
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - level
+    if left > 1 << 24:          # 16 MiB: a replica's caches are 3.2 GB
+        raise AssertionError(f"fleet run {name}: {left} bytes still held "
+                             "after the runner was dropped")
+    if rep["tokens"] != want["tokens"]:
+        parted = sorted(r for r in want["tokens"]
+                        if rep["tokens"].get(r) != want["tokens"][r])
+        raise AssertionError(f"fleet run {name}: streams {parted} differ "
+                             "from the undisturbed run's")
+    if rep["failovers"] < 1:
+        raise AssertionError(f"fleet run {name}: no failover")
+    calls = L * (watch["calls"]["prefill"] + watch["calls"]["decode"])
+    need = {"quantize_int8_into": calls, "dequantize_int8": 2 * calls,
+            "ring_attention": calls, "quantize_int8": 0}
+    if any(launches[k] != v for k, v in need.items()):
+        raise AssertionError(f"fleet run {name}: launches {launches}, want "
+                             f"{need} ({watch['calls']} calls, {L} layers)")
+    watch["launches"] = launches
+    log(f"  {name}: {rep['ticks']} ticks, {rep['total_tokens']} tokens in "
+        f"{rep['wall_s']:.3f} s, {rep['tok_s']:.2f} tok/s; TTFT p50/p95 "
+        f"{rep['ttft_ticks_p50']}/{rep['ttft_ticks_p95']} ticks; "
+        f"{rep['failovers']} failovers, {rep['quarantines']} quarantines, "
+        f"{rep['rejoins']} rejoins, {rep['resumed_tokens']} resumed tokens, "
+        f"recovery {rep['recovery_ticks']} ticks; alive {rep['alive']}; "
+        f"{watch['calls']['decode']} decode calls and "
+        f"{watch['calls']['prefill']} prefill chunks; streams bitwise the "
+        "undisturbed run's")
+    return rep, watch
+
+
+def fleet_line(rep: dict, watch: dict) -> dict:
+    return {"ticks": rep["ticks"], "total_tokens": rep["total_tokens"],
+            "wall_s": rep["wall_s"], "tokens_per_s": rep["tok_s"],
+            "ttft_ticks_p50": rep["ttft_ticks_p50"],
+            "ttft_ticks_p95": rep["ttft_ticks_p95"],
+            "failovers": rep["failovers"],
+            "quarantines": rep["quarantines"], "rejoins": rep["rejoins"],
+            "resumed_tokens": rep["resumed_tokens"],
+            "recovery_ticks": rep["recovery_ticks"], "alive": rep["alive"],
+            "events": rep["events"], "calls": watch["calls"],
+            "memory": watch["memory"]}
+
+
+def epochs(rep: dict, n: int) -> list:
+    """The run's membership epochs from its failover events: [(first tick,
+    members)], starting with all ``n`` replicas."""
+    members, out = list(range(n)), [(0, tuple(range(n)))]
+    for e in rep["events"]:
+        if "p" not in e:
+            continue
+        members = sorted((set(members) - set(e["dead"])
+                          - set(e["quarantined"])) | set(e["rejoined"]))
+        out.append((e["tick"], tuple(members)))
+    return out
+
+
+def member_reduction(dev, rep: dict, watch: dict) -> dict:
+    """Each membership epoch's per-replica stats rows, summed per member,
+    reduced over the members on ``LocalTransport`` (p = the epoch's
+    members, as ``plan_remesh`` plans it) under an installed probe; each
+    sum equal to numpy's. Returns the p's, ``combine3`` launches per
+    reduction and the probe's samples."""
+    eps = epochs(rep, FLEET["replicas"])
+    k = len(STATS_FIELDS)
+    out = {"p": [], "combine3_launches": [], "methods": []}
+    parts = []
+    for i, (t0, members) in enumerate(eps):
+        t1 = eps[i + 1][0] if i + 1 < len(eps) else rep["ticks"]
+        part = np.zeros((len(members), k), np.float32)
+        for tick, r, row in watch["rows"]:
+            if t0 <= tick < t1 and r in members:
+                part[members.index(r)] += np.asarray(row, np.float32)
+        parts.append((members, part))
+        # one unprobed call first, so the probe times no first-call set-up
+        make_stats_reducer(LocalTransport(len(members), dev))(part)
+    with obs.probing() as probe:
+        for members, part in parts:
+            plan = fault_tolerance.plan_remesh(members, float(k * 4))
+            if plan.new_p != len(members):
+                raise AssertionError(f"plan_remesh over {members}: {plan}")
+            zero_counters()
+            got = make_stats_reducer(LocalTransport(plan.new_p, dev))(part)
+            out["combine3_launches"].append(counters()["combine3"])
+            if not np.array_equal(got, part.sum(0)):
+                raise AssertionError(f"stats over {members}: {got} != numpy "
+                                     f"{part.sum(0)}")
+            out["p"].append(plan.new_p)
+            out["methods"].append(probe.traced()[-1].method)
+    if out["p"] != [3, 2, 3]:
+        raise AssertionError(f"membership p {out['p']}, want [3, 2, 3]")
+    for p, m, c in zip(out["p"], out["methods"], out["combine3_launches"]):
+        if m == "dptree" and c == 0:
+            raise AssertionError(f"p={p}: dptree ran without combine3")
+    timed = probe.timed()
+    out["samples"] = {"seen": probe.n_seen, "timed": len(timed),
+                      "trace": len(probe.traced())}
+    out["timed_s"] = [s.wall_s for s in timed]
+    try:
+        fit = obs.fit_alpha_beta(timed)
+        out["fit"] = {"alpha_s": fit.alpha, "beta_s_per_byte": fit.beta,
+                      "n": fit.n_samples, "max_rel_err": fit.max_rel_err}
+        note = (f"alpha {fit.alpha:.3e} s, beta {fit.beta:.3e} s/B over "
+                f"{fit.n_samples} samples")
+    except ValueError as e:
+        out["fit"] = {"refused": str(e)}
+        note = f"no fit: {e}"
+    log(f"  stats over the members at p = {out['p']} (methods "
+        f"{out['methods']}, combine3 launches {out['combine3_launches']}) "
+        f"equal to numpy's sum; probe: {out['samples']}, timed "
+        f"{[f'{s * 1e3:.4f} ms' for s in out['timed_s']]}; constants of "
+        f"LocalTransport stacked on one card (the p ranks are rows of one "
+        f"tensor), not of a link: {note}")
+    return out
+
+
+def fleet_phase(dev, cfg, params) -> dict:
+    L = cfg.n_layers
+    log(f"  {cfg.name}: {FLEET['replicas']} replicas of {FLEET['slots']} "
+        f"slots, ring {FLEET['cache_len']}, prefill chunk "
+        f"{FLEET['prefill_chunk']}; W11: {FLEET['requests']} requests a tick "
+        f"apart, prompts {FLEET['prompt_lens']}, new tokens "
+        f"{FLEET['max_new']}, the odd ones sampled; heartbeat deadline "
+        f"{FLEET['timeout']} ticks, rejoin probation "
+        f"{FLEET['rejoin_backoff']}")
+    # earlier phases' cyclic garbage (device tensors among it) goes now,
+    # not inside a run, where the memory readings around a death are taken
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(cfg, None, params, n_slots=FLEET["slots"],
+                           max_len=FLEET["cache_len"],
+                           prefill_chunk=FLEET["prefill_chunk"], device=dev)
+    base = engine.run(w11(cfg.vocab_size))
+    cache_bytes = sum(t.numel() * t.element_size() for c in engine.caches
+                      for t in c.values() if t.device.type == dev.type)
+    engine.caches = None
+    short = [r for r, t in base["tokens"].items() if not t]
+    if base["requests"] != FLEET["requests"] or short:
+        raise AssertionError(f"undisturbed run: {base['requests']} requests, "
+                             f"empty streams {short}")
+    log(f"  undisturbed (one engine, {FLEET['slots']} slots): "
+        f"{base['ticks']} ticks, {base['total_tokens']} tokens in "
+        f"{base['wall_s']:.3f} s, {base['tok_s']:.2f} tok/s; TTFT p50/p95 "
+        f"{base['ttft_ticks_p50']}/{base['ttft_ticks_p95']} ticks; a "
+        f"replica's caches {cache_bytes / 1e9:.3f} GB")
+    runs, launches = {}, {k: 0 for k in WRAPPERS}
+    plans = {"a": (Fault(5, "kill", replica=1),),
+             "b": (Fault(4, "flap", replica=1, duration=8),
+                   Fault(3, "straggle", replica=0, duration=6, factor=2.0)),
+             "c": (Fault(6, "poison", replica=2),)}
+    plans["d"] = plans["b"]
+    names = {"a": "(a) kill replica 1 at tick 5",
+             "b": "(b) flap replica 1 for 8 ticks, replica 0 straggling",
+             "c": "(c) poison replica 2 at tick 6",
+             "d": "(d) (b) again"}
+    watches = {}
+    for key in "abcd":
+        rep, watches[key] = fleet_run(engine, names[key], plans[key], base,
+                                      L)
+        runs[key] = fleet_line(rep, watches[key])
+        for k in WRAPPERS:
+            launches[k] += watches[key]["launches"][k]
+        if key == "b":
+            flap = rep
+    # (a): the dead replica's caches are freed with its session
+    dead = [m for m in watches["a"]["memory"] if m["event"] == "discard"]
+    if not dead or dead[0]["before"] - dead[0]["after"] < cache_bytes:
+        raise AssertionError(f"(a): the dead replica freed {dead} bytes, "
+                             f"want {cache_bytes}")
+    # (b): one rejoin, every replica alive again, journals resumed, the
+    # device memory after the rejoin within a replica's caches of its level
+    # before the flap's death
+    b = runs["b"]
+    mem = watches["b"]["memory"]
+    gone = [m for m in mem if m["event"] == "discard"]
+    back = [m for m in mem if m["event"] == "rejoin"]
+    if b["rejoins"] != 1 or b["alive"] != [0, 1, 2] or \
+            b["resumed_tokens"] < 1 or not b["recovery_ticks"] or \
+            not gone or not back or \
+            gone[0]["before"] - gone[0]["after"] < cache_bytes or \
+            abs(back[0]["after"] - gone[0]["before"]) > cache_bytes:
+        raise AssertionError(f"(b): {b['rejoins']} rejoins, alive "
+                             f"{b['alive']}, {b['resumed_tokens']} resumed, "
+                             f"recovery {b['recovery_ticks']}, memory {mem}")
+    if runs["d"]["events"] != b["events"]:
+        raise AssertionError("(d): the replay's events differ from (b)'s")
+    # (c): quarantined through a non-finite logit from the card's kernels,
+    # nothing of the poisoned tick committed
+    c, pois = runs["c"], watches["c"]["poisoned"]
+    if c["quarantines"] != 1 or c["alive"] != [0, 1] or len(pois) != 1 or \
+            pois[0]["replica"] != 2 or pois[0]["device"] != dev.type or \
+            pois[0]["ring_attention_launches"] < L or \
+            pois[0]["journal_before"] != pois[0]["journal_after"]:
+        raise AssertionError(f"(c): {c['quarantines']} quarantines, alive "
+                             f"{c['alive']}, poisoned ticks {pois}")
+    runs["c"]["poisoned"] = pois
+    log(f"  (a) freed {(dead[0]['before'] - dead[0]['after']) / 1e9:.3f} GB "
+        f"at the death of replica 1; (b) {gone[0]['before'] / 1e9:.3f} GB "
+        f"before the flap's death, {gone[0]['after'] / 1e9:.3f} after, "
+        f"{back[0]['after'] / 1e9:.3f} after the rejoin; (c) replica 2 "
+        f"quarantined at tick {pois[0]['tick']}: slots {pois[0]['slots']} "
+        f"(requests {pois[0]['rids']}) gave non-finite logits through "
+        f"{pois[0]['ring_attention_launches']} ring_attention launches, "
+        f"journals {pois[0]['journal_before']} kept; (d) replays (b)'s "
+        "events")
+    # (e): (a) traced, with live metrics every few ticks
+    tracer, metrics = obs.Tracer(), obs.StreamingMetrics()
+    engine.tracer, engine.metrics = tracer, metrics
+    engine.metrics_every = FLEET["metrics_every"]
+    try:
+        rep, watches["e"] = fleet_run(engine, "(e) (a) traced", plans["a"],
+                                      base, L)
+    finally:
+        engine.tracer = engine.metrics = None
+        engine.metrics_every = 0
+    runs["e"] = fleet_line(rep, watches["e"])
+    for k in WRAPPERS:
+        launches[k] += watches["e"]["launches"][k]
+    fails = tracer.by_name("failover")
+    if not any(e.rid is None and e.replica == 1 for e in fails) or \
+            sum(1 for e in fails if e.rid is not None) != rep["failovers"]:
+        raise AssertionError(f"(e): failover events {fails}, "
+                             f"{rep['failovers']} failovers")
+    path = os.path.join(ROOT, "build", "phase11_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tracer.to_chrome(path)
+    with open(path) as f:
+        doc = json.load(f)
+    snap = metrics.snapshot()
+    if metrics.ttft.total() != FLEET["requests"] or \
+            metrics.latency.total() != FLEET["requests"]:
+        raise AssertionError(f"(e): live metrics {snap}")
+    runs["e"].update(trace_events=len(tracer), chrome_events=len(
+        doc["traceEvents"]), failover_events=len(fails),
+        names=sorted(tracer.names()), live_metrics=snap)
+    log(f"  (e): {len(tracer)} events ({len(fails)} failover), "
+        f"{len(doc['traceEvents'])} Chrome trace entries in {path}, read "
+        f"back; live metrics {snap}")
+    stats = member_reduction(dev, flap, watches["b"])
+    launches["combine3"] += sum(stats["combine3_launches"])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  phase 11 peak memory {peak / 1e9:.2f} GB")
+    del engine
+    torch.cuda.empty_cache()
+    return {"undisturbed": {"ticks": base["ticks"],
+                            "total_tokens": base["total_tokens"],
+                            "wall_s": base["wall_s"],
+                            "tokens_per_s": base["tok_s"],
+                            "ttft_ticks_p50": base["ttft_ticks_p50"],
+                            "ttft_ticks_p95": base["ttft_ticks_p95"]},
+            "replica_cache_bytes": cache_bytes, "runs": runs,
+            "launches": launches, "stats": stats, "max_memory_bytes": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2635,7 +3024,6 @@ def main() -> int:
     t10 = time.perf_counter()
     spec = spec_phase(dev, scfg, sparams)
     spec["seconds"] = time.perf_counter() - t10
-    del sparams
     torch.cuda.empty_cache()
     write["verify_shape"] = spec.pop("verify_write")
     write["max_abs_err"] = max(write["max_abs_err"],
@@ -2651,6 +3039,21 @@ def main() -> int:
         main_launches[name] += spec["launches"][name]
     log(f"phase 10 seconds {spec['seconds']:.2f}")
     log("speculative path: " + json.dumps(spec))
+    log("phase 11: the replica fleet under chaos, MiniCPM-2B at full width")
+    t11 = time.perf_counter()
+    fleet = fleet_phase(dev, scfg, sparams)
+    fleet["seconds"] = time.perf_counter() - t11
+    del sparams
+    torch.cuda.empty_cache()
+    for name in ("quantize_int8_into", "dequantize_int8", "ring_attention"):
+        rows[name]["launches_by_path"]["fleet"] = fleet["launches"][name]
+        main_launches[name] += fleet["launches"][name]
+    rows["combine3"]["launches_by_path"] = {
+        "collective": main_launches["combine3"],
+        "fleet_stats": fleet["launches"]["combine3"]}
+    main_launches["combine3"] += fleet["launches"]["combine3"]
+    log(f"phase 11 seconds {fleet['seconds']:.2f}")
+    log("fleet path: " + json.dumps(fleet))
     log(card)
     for name in ("combine3", "compress_bf16", "decompress_bf16",
                  "quantize_int8_into", "dequantize_int8",

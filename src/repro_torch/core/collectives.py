@@ -28,6 +28,7 @@ from repro_torch.core import cost_model as cm
 from repro_torch.core.dptree import (COMMUTATIVE_OPS, Op, dptree_allreduce,
                                      hier_allreduce, redbcast_allreduce,
                                      ring_allreduce, sptree_allreduce)
+from repro_torch.obs import probe as _obs_probe
 from repro_torch.core.topology import resolve_levels
 
 __all__ = [
@@ -223,6 +224,12 @@ def all_reduce(x: torch.Tensor, comm,
           else _nblocks(config.num_blocks, p, nbytes, config.comm_model,
                         algo, hier_spec,
                         "bf16" if hier_compress else None))
+    probe = _obs_probe.active()
+    if probe is not None and algo != "hier":
+        # what was picked (algorithm, blocks, shape), noted on every call;
+        # hier defers to hier_allreduce's own note (resolved level spec)
+        probe.note(algo, p, nbytes, nb, dtype=_dtype_name(flat.dtype),
+                   kind="trace", levels=hier_spec)
     if algo == "psum":
         if not _is_named(op, _PRIMITIVE_REDUCE):
             raise ValueError(

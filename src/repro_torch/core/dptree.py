@@ -46,6 +46,7 @@ from repro_torch.core.topology import (NO_NODE, HierarchicalTopology,
                                        TreeTopology, build_dual_tree,
                                        build_hierarchy, build_single_tree)
 from repro_torch.kernels import block_combine, quantize, ref
+from repro_torch.obs import probe as _obs_probe
 
 __all__ = [
     "dptree_allreduce",
@@ -416,6 +417,14 @@ def hier_allreduce(x: torch.Tensor, comm, *, group_size=None,
     if h.p != p:
         raise ValueError(f"hierarchy is for p={h.p}, transport has p={p}")
     _check_stacked(x, comm)
+    probe = _obs_probe.active()
+    if probe is not None and h.levels:
+        # the note for direct hier calls; all_reduce's hier branch defers
+        # to this one, so a sample is never counted twice (the no-level
+        # shape is a flat dptree, and all_reduce notes it)
+        probe.note("hier", p, x[0].numel() * x.element_size(), num_blocks,
+                   dtype=str(x.dtype).removeprefix("torch."), kind="trace",
+                   levels=tuple(h.levels))
     if not h.levels:  # one rank per group: plain flat dptree over all ranks
         nb = max(1, min(int(num_blocks), x.shape[1]))
         return _tree_allreduce(x, comm, h.inter_topo, nb, op, None)

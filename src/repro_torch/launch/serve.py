@@ -19,6 +19,18 @@ the SLO policy with priorities and deadlines:
       --policy slo --priority interactive --deadline-ticks 8 \\
       --requests 6 --slots 3 --device cpu
 
+Chaos mode serves the same workload across a replica fleet under a
+seeded fault plan (replica kills, heartbeat flaps, stragglers, poisoned
+logits) and checks that the merged streams are the undisturbed run's, bit
+for bit; ``--trace-out`` writes the run's events (Chrome trace or JSONL),
+``--metrics-every`` prints live TTFT and latency percentiles and
+``--probe`` the collective probe's fit (these three work on
+``--continuous`` too):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \\
+      --reduced --chaos-seed 7 --replicas 3 --heartbeat-timeout 2 \\
+      --heartbeat-misses 2 --trace-out build/chaos.json --probe --device cpu
+
 The fixed-batch loop: every row decodes in lockstep from an empty cache,
 starting from token 0, with greedy argmax:
 
@@ -29,9 +41,9 @@ The config is the one the reference decodes with (``decode_config``):
 bf16 parameters, and the int8 K/V cache where ``n_kv_heads * head_dim >=
 2048`` (MiniCPM-2B at full width). Under bf16 compute, bf16 parameters give
 the same numbers as the f32 ones the reference stores, since every weight
-is cast to bf16 before use. The reference's other flags (the fleet,
-tracing, the mesh) are later slices; each is refused with the ROADMAP item
-that ports it.
+is cast to bf16 before use. The reference's ``--mesh`` (data and tensor
+parallelism over several devices) is a later slice and is refused with
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -51,19 +63,11 @@ from repro_torch.models import transformer as tf
 from repro_torch.serving.speculative import MAX_DRAFT_K
 
 __all__ = ["ServeRun", "serve_loop", "synthetic_workload",
-           "serve_continuous", "main"]
+           "serve_continuous", "serve_chaos", "main"]
 
-_FLEET = "ROADMAP.md queue 1, 'Next' item 2c (the fleet)"
-_OBS = "ROADMAP.md queue 1, 'Next' item 6 (observability)"
-_DIST = "ROADMAP.md queue 1, 'Next' item 4 (the dist transport)"
 # the reference's other flags -> the ROADMAP item that ports them
 UNPORTED_FLAGS = {
-    **{f: _FLEET for f in (
-        "--chaos-seed", "--replicas", "--heartbeat-timeout",
-        "--heartbeat-misses", "--rejoin-backoff")},
-    **{f: _OBS for f in ("--trace-out", "--trace-format", "--metrics-every",
-                         "--probe")},
-    "--mesh": _DIST,
+    "--mesh": "ROADMAP.md queue 1, 'Next' item 4 (the dist transport)",
 }
 
 
@@ -165,6 +169,79 @@ def synthetic_workload(n: int, vocab: int, *, gap: int = 2, seed: int = 0,
     ]
 
 
+def _obs_build(args):
+    """Observability sinks from the CLI flags: ``(tracer, metrics_kwargs)``.
+    One Tracer serves the whole run (continuous or chaos); metrics attach
+    only when ``--metrics-every`` asks for live snapshots."""
+    from repro_torch.obs import StreamingMetrics, Tracer
+    tracer = Tracer() if args.trace_out else None
+    kwargs = {}
+    if args.metrics_every > 0:
+        kwargs["metrics"] = StreamingMetrics()
+        kwargs["metrics_every"] = args.metrics_every
+        kwargs["metrics_sink"] = (
+            lambda tick, s: print(
+                f"[metrics t={tick}] "
+                f"ttft p50/p99 {s['ttft_ticks_p50']:.0f}/"
+                f"{s['ttft_ticks_p99']:.0f} ticks "
+                f"({s['ttft_n']:.0f} obs), "
+                f"latency p50/p99 {s['latency_ticks_p50']:.0f}/"
+                f"{s['latency_ticks_p99']:.0f} ticks "
+                f"({s['latency_n']:.0f} obs)"))
+    return tracer, kwargs
+
+
+def _obs_finish(args, tracer, probe=None):
+    """Write the trace file(s) and print the probe's fit and residual
+    summary."""
+    if probe is not None and len(probe):
+        from repro_torch.obs import fit_alpha_beta, residual_report
+        timed = probe.timed()
+        print(f"[probe] {probe.n_seen} samples "
+              f"({len(timed)} timed, {len(probe.traced())} trace-time)")
+        rows = residual_report(timed, probe.model)
+        if rows:
+            worst = max(rows, key=lambda r: r["rel_err"])
+            print(f"[probe] vs {probe.model.name}: worst residual "
+                  f"{worst['rel_err']:.1%} at p={worst['p']} "
+                  f"{worst['nbytes']}B ({worst['method']})")
+        try:
+            fr = fit_alpha_beta(timed)
+            print(f"[probe] fitted alpha={fr.alpha:.3e}s "
+                  f"beta={fr.beta:.3e}s/B over {fr.n_samples} samples "
+                  f"(max rel err {fr.max_rel_err:.1%})")
+        except ValueError as e:
+            print(f"[probe] no fit: {e}")
+        if tracer is not None:
+            from repro_torch.obs import export_residuals
+            export_residuals(tracer, timed, model=probe.model)
+    if tracer is not None:
+        path = args.trace_out
+        if args.trace_format in ("chrome", "both"):
+            tracer.to_chrome(path)
+            dropped = (f", {tracer.dropped} dropped" if tracer.dropped
+                       else "")
+            print(f"[trace] {len(tracer)} events -> {path} "
+                  f"(chrome://tracing / Perfetto{dropped})")
+        if args.trace_format in ("jsonl", "both"):
+            jl = path if args.trace_format == "jsonl" else path + ".jsonl"
+            n = tracer.to_jsonl(jl)
+            print(f"[trace] {n} events -> {jl} (jsonl)")
+
+
+def _probed(args, fn):
+    """``fn()`` under a fresh installed probe when ``--probe`` asks for one;
+    returns ``(result, probe or None)``."""
+    if not args.probe:
+        return fn(), None
+    from repro_torch.obs import CollectiveProbe, install, uninstall
+    probe = install(CollectiveProbe())
+    try:
+        return fn(), probe
+    finally:
+        uninstall()
+
+
 def serve_continuous(args, cfg: tf.ModelConfig | None = None,
                      params=None) -> dict:
     """Drive the continuous-batching engine on a synthetic workload:
@@ -173,8 +250,10 @@ def serve_continuous(args, cfg: tf.ModelConfig | None = None,
     ``args.seed + 1``, with the speculation, SLO and prefix-cache flags.
     ``cfg`` defaults to ``decode_config`` of ``args.arch``, ``params`` to
     ``init_params(cfg, args.seed)``; a ``--draft-model`` is the reduced
-    arch's ``decode_config`` with weights from ``args.seed + 7``. Prints
-    the report line and returns the report."""
+    arch's ``decode_config`` with weights from ``args.seed + 7``. With
+    ``--trace-out``, ``--metrics-every`` or ``--probe`` the run is traced,
+    reports live percentiles or is probed. Prints the report line and
+    returns the report."""
     from repro_torch.serving import (DraftModelDrafter, PriorityClass,
                                      SamplingParams, ServingEngine,
                                      SLOParams, SpecParams, make_policy,
@@ -195,13 +274,15 @@ def serve_continuous(args, cfg: tf.ModelConfig | None = None,
             dcfg, tf.init_params(dcfg, args.seed + 7, dev),
             get_parallel(args.draft_model), n_slots=args.slots,
             max_len=args.cache_len, device=dev)
+    tracer, obs_kwargs = _obs_build(args)
     engine = ServingEngine(cfg, get_parallel(args.arch), params,
                            n_slots=args.slots, max_len=args.cache_len,
                            prefill_chunk=args.prefill_chunk,
                            stats_reducer=make_stats_reducer(),
                            drafter=drafter, prefix_cache=args.prefix_cache,
                            prefix_cache_nodes=(args.prefix_cache_nodes
-                                               or 256), device=dev)
+                                               or 256), device=dev,
+                           tracer=tracer, **obs_kwargs)
     sampling = None
     if args.temperature > 0:
         sampling = SamplingParams(temperature=args.temperature,
@@ -223,7 +304,9 @@ def serve_continuous(args, cfg: tf.ModelConfig | None = None,
                               and not args.draft_model,
                               slo=slo, shared_prefix=args.shared_prefix)
     policy = make_policy(args.policy) if args.policy != "fifo" else None
-    report = engine.run(reqs, static=args.static, policy=policy)
+    report, probe = _probed(args, lambda: engine.run(
+        reqs, static=args.static, policy=policy))
+    _obs_finish(args, tracer, probe)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else str(dev))
     spec_note = (f", {report['accepted_tokens']}/"
@@ -249,6 +332,66 @@ def serve_continuous(args, cfg: tf.ModelConfig | None = None,
           f"ticks, ttft p50 {report['ttft_ticks_p50']:.1f} ticks, "
           f"latency p95 {report['latency_ticks_p95']:.1f} ticks"
           f"{slo_note}{prefix_note})")
+    return report
+
+
+def serve_chaos(args) -> dict:
+    """Serve the synthetic workload across ``args.replicas`` engine sessions
+    under the fault plan seeded by ``args.chaos_seed`` and check that no
+    stream parts from the undisturbed single-engine run (raises
+    ``SystemExit`` if one does); the model as in :func:`serve_continuous`.
+    The tracer and the live metrics attach after the undisturbed run, so
+    they cover the chaos run only. Prints the fault plan and the fleet's
+    counts and returns the fleet's report."""
+    from repro_torch.runtime.chaos import FaultPlan
+    from repro_torch.serving import (FleetRunner, SamplingParams,
+                                     ServingEngine, make_stats_reducer)
+    dev = resolve_device(args.device)
+    cfg = decode_config(get_config(args.arch, reduced=args.reduced))
+    engine = ServingEngine(cfg, get_parallel(args.arch),
+                           tf.init_params(cfg, args.seed, dev),
+                           n_slots=args.slots, max_len=args.cache_len,
+                           prefill_chunk=args.prefill_chunk,
+                           stats_reducer=make_stats_reducer(), device=dev)
+    sampling = None
+    if args.temperature > 0:
+        sampling = SamplingParams(temperature=args.temperature,
+                                  top_k=args.top_k, top_p=args.top_p,
+                                  seed=args.sample_seed)
+
+    def workload():
+        return synthetic_workload(args.requests, cfg.vocab_size,
+                                  gap=args.arrival_gap, seed=args.seed + 1,
+                                  prompt_lens=tuple(args.prompt_len),
+                                  sampling=sampling)
+
+    base = engine.run(workload())
+    tracer, obs_kwargs = _obs_build(args)
+    engine.tracer = tracer
+    engine.metrics = obs_kwargs.get("metrics")
+    engine.metrics_every = obs_kwargs.get("metrics_every", 0)
+    engine.metrics_sink = obs_kwargs.get("metrics_sink")
+    plan = FaultPlan.seeded(args.chaos_seed, n_replicas=args.replicas,
+                            horizon=max(2, base["ticks"]))
+    runner = FleetRunner(engine, args.replicas, plan=plan,
+                         timeout_s=args.heartbeat_timeout,
+                         misses=args.heartbeat_misses,
+                         rejoin_backoff_s=args.rejoin_backoff)
+    report, probe = _probed(args, lambda: runner.run(workload()))
+    _obs_finish(args, tracer, probe)
+    diverged = sum(report["tokens"][rid] != base["tokens"][rid]
+                   for rid in base["tokens"])
+    faults = ", ".join(f"t{f.tick}:{f.kind}@r{f.replica}" for f in plan) \
+        or "none"
+    print(f"[chaos seed={args.chaos_seed}] faults: {faults}")
+    print(f"[chaos] {report['requests']} requests over "
+          f"{report['n_replicas']} replicas: {report['failovers']} "
+          f"failovers, {report['quarantines']} quarantines, "
+          f"{report['rejoins']} rejoins, {report['resumed_tokens']} "
+          f"resumed tokens, recovery {report['recovery_ticks']} ticks, "
+          f"{diverged} diverged streams (want 0)")
+    if diverged:
+        raise SystemExit(f"chaos run diverged on {diverged} streams")
     return report
 
 
@@ -338,6 +481,44 @@ def main(argv=None):
                     help="per-deployment autotune cache file; overrides "
                          "REPRO_TORCH_AUTOTUNE_CACHE and the default (what "
                          "the b=1 stats reduction's method='auto' consults)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a structured trace of the run (admissions, "
+                         "prefill chunks, commits, preemptions, failovers, "
+                         "...) to PATH; tracing is pure observation, the "
+                         "streams are the same with it on or off (implies "
+                         "--continuous)")
+    ap.add_argument("--trace-format", choices=("chrome", "jsonl", "both"),
+                    default="chrome",
+                    help="--trace-out format: 'chrome' (chrome://tracing / "
+                         "Perfetto JSON, the default), 'jsonl' (one event "
+                         "a line), or 'both' (chrome at PATH, jsonl at "
+                         "PATH.jsonl)")
+    ap.add_argument("--metrics-every", type=int, default=0,
+                    help="print live fleet-wide TTFT/latency percentiles "
+                         "every N ticks: fixed-bucket histograms riding the "
+                         "same b=1 stats reduction as the counters (0 = "
+                         "off; implies --continuous)")
+    ap.add_argument("--probe", action="store_true",
+                    help="record (p, nbytes, method, blocks) -> wall-time "
+                         "samples from every collective in the run and "
+                         "print the alpha-beta fit and the predicted-vs-"
+                         "measured residuals (implies --continuous)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="serve the workload across --replicas engines "
+                         "under the seeded fault plan (kills, flaps, "
+                         "stragglers, poisoned logits) and check that no "
+                         "stream parts from the undisturbed run")
+    ap.add_argument("--replicas", type=int, default=3,
+                    help="chaos mode: fleet size (>= 2)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=2.0,
+                    help="chaos mode: heartbeat deadline in ticks (the "
+                         "fleet simulation's virtual clock)")
+    ap.add_argument("--heartbeat-misses", type=int, default=1,
+                    help="chaos mode: missed deadlines before a SUSPECT "
+                         "replica is declared dead (flap tolerance)")
+    ap.add_argument("--rejoin-backoff", type=float, default=1.0,
+                    help="chaos mode: base rejoin probation in ticks "
+                         "(doubles per drop)")
     args, rest = ap.parse_known_args(argv)
     for tok in rest:
         flag = tok.split("=", 1)[0]
@@ -348,9 +529,13 @@ def main(argv=None):
     _validate_args(ap, args)
     if args.autotune_cache:
         autotune.set_cache_path(args.autotune_cache)
+    if args.chaos_seed is not None:
+        return serve_chaos(args)
     if args.continuous or args.static or args.speculate or args.draft_model \
             or args.policy != "fifo" or args.priority is not None \
-            or args.deadline_ticks is not None or args.prefix_cache:
+            or args.deadline_ticks is not None or args.prefix_cache \
+            or args.trace_out is not None or args.metrics_every > 0 \
+            or args.probe:
         return serve_continuous(args)
     return serve_loop(args)
 
@@ -389,9 +574,42 @@ def _validate_args(ap, args) -> None:
                      f"got {args.prefix_cache_nodes}")
     if args.shared_prefix < 0:
         ap.error(f"--shared-prefix must be >= 0, got {args.shared_prefix}")
-    if args.policy != "fifo" and args.static:
-        ap.error("--policy slo is incompatible with --static: static "
-                 "batching IS the batch-synchronous FIFO reference")
+    if args.heartbeat_timeout <= 0:
+        ap.error(f"--heartbeat-timeout must be > 0, "
+                 f"got {args.heartbeat_timeout}")
+    if args.heartbeat_misses < 1:
+        ap.error(f"--heartbeat-misses must be >= 1, "
+                 f"got {args.heartbeat_misses}")
+    if args.rejoin_backoff < 0:
+        ap.error(f"--rejoin-backoff must be >= 0, got {args.rejoin_backoff}")
+    if args.metrics_every < 0:
+        ap.error(f"--metrics-every must be >= 0, got {args.metrics_every}")
+    if args.trace_out is None and args.trace_format != "chrome":
+        ap.error("--trace-format requires --trace-out (there is no trace "
+                 "file to format without it)")
+    if args.prefix_cache and args.chaos_seed is not None:
+        ap.error("--prefix-cache is incompatible with --chaos-seed: the "
+                 "trie is per-session state and the chaos baseline/fleet "
+                 "comparison assumes identical tick accounting")
+    if args.policy != "fifo":
+        if args.static:
+            ap.error("--policy slo is incompatible with --static: static "
+                     "batching IS the batch-synchronous FIFO reference")
+        if args.chaos_seed is not None:
+            ap.error("--policy slo is incompatible with --chaos-seed: the "
+                     "fleet's exact-resume accounting assumes FIFO "
+                     "(shedding would strand the run-to-completion loop)")
+    if args.chaos_seed is not None:
+        if args.replicas < 2:
+            ap.error(f"--chaos-seed needs --replicas >= 2, "
+                     f"got {args.replicas}")
+        if args.speculate or args.draft_model:
+            ap.error("--chaos-seed is incompatible with --speculate/"
+                     "--draft-model: the drafter slot table is engine-"
+                     "global, and the fleet runs one session per replica")
+        if args.static:
+            ap.error("--chaos-seed is incompatible with --static "
+                     "(the fleet is continuous-batching only)")
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-"""The training supervisor: restarts after a host failure."""
+"""Fault tolerance (heartbeats, elastic re-planning, stragglers, the
+training supervisor) and deterministic chaos injection."""

@@ -18,14 +18,16 @@
                    dual-root tree
   engine.py      — the engine loop over the slot prefill, decode and
                    verify steps (chunked admission, prefix adoption, exact
-                   resume)
-
-The fleet (ROADMAP queue 1's item 2c) and the tracer (item 6) are later
-slices.
+                   resume), with the tracer and live metrics hooks
+  fleet.py       — replica failover: heartbeats, the SUSPECT window,
+                   rejoin and quarantine, plan_remesh shrink and grow;
+                   FleetRunner drives one EngineSession per replica under
+                   a chaos plan
 """
 
 from repro_torch.serving.engine import (EngineSession, PoisonedLogits,
                                         ServingEngine)
+from repro_torch.serving.fleet import FailoverPlan, FleetRunner, ReplicaFleet
 from repro_torch.serving.prefix import PrefixCache, PrefixNode
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import (GREEDY, SamplingParams,
@@ -48,6 +50,7 @@ __all__ = [
     "ServingEngine", "EngineSession", "PoisonedLogits",
     "Request", "RequestState", "SlotScheduler",
     "PrefixCache", "PrefixNode",
+    "ReplicaFleet", "FleetRunner", "FailoverPlan",
     "TelemetryLog", "StepStats",
     "SamplingParams", "GREEDY", "sample_tokens", "sample_tokens_block",
     "SpecParams", "Drafter", "NgramDrafter", "DraftModelDrafter",

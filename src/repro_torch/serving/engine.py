@@ -34,13 +34,17 @@ ticks (one loop iteration; arrival, TTFT and latency are counted in
 ticks) and wall seconds (throughput). ``run(..., static=True)`` runs the
 batch-synchronous reference policy through the same steps.
 
-Not ported yet, each refused with its ROADMAP item: the tracer and live
-metrics (item 6), tensor parallelism (item 4).
+The tracer and the live metrics (:mod:`repro_torch.obs`) are optional
+sinks, read each tick, so they may attach mid-run; every hook is one
+``is None`` check when they are off, and they never feed back into the
+tokens. Tensor parallelism is not ported yet and is refused with its
+ROADMAP item (item 4).
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -55,12 +59,13 @@ from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.slo import slo_report
 from repro_torch.serving.speculative import (AdaptiveDraftController,
-                                             NgramDrafter, SpecParams)
-from repro_torch.serving.telemetry import TelemetryLog, stats_vector
+                                             NgramDrafter, SpecParams,
+                                             drafter_label)
+from repro_torch.serving.telemetry import (STATS_FIELDS, TelemetryLog,
+                                           stats_vector)
 
 __all__ = ["ServingEngine", "EngineSession", "PoisonedLogits"]
 
-_ITEM_6 = "ROADMAP.md queue 1, 'Next' item 6 (observability)"
 _ITEM_4 = "ROADMAP.md queue 1, 'Next' item 4 (the dist transport)"
 
 
@@ -108,8 +113,15 @@ class ServingEngine:
     the prefix cache on and the default drafter, the trie is also the
     drafter's shared n-gram corpus.
 
-    ``tracer`` and ``metrics`` are the reference's; any but None is refused
-    with the ROADMAP item that ports them."""
+    Observability (:mod:`repro_torch.obs`), all optional and all read each
+    tick, so a tracer or metrics object may attach mid-run (after an
+    untraced baseline, say): ``tracer`` an :class:`~repro_torch.obs.Tracer`
+    event sink (pure observation); ``metrics`` a
+    :class:`~repro_torch.obs.StreamingMetrics`, whose TTFT and latency
+    histogram increments ride the per-tick stats row (the same b=1
+    reduction, a wider payload); ``metrics_every`` emits a live snapshot
+    every N ticks (0 is off) to ``metrics_sink(tick, snapshot)`` and to the
+    tracer as a ``metrics`` event."""
 
     def __init__(self, cfg, pcfg: ParallelConfig | None, params, *,
                  n_slots: int = 4, max_len: int = 128,
@@ -117,10 +129,8 @@ class ServingEngine:
                  prefill_chunk: int | None = None, stats_reducer=None,
                  drafter=None, draft_headroom: int | None = None,
                  prefix_cache: bool = False, prefix_cache_nodes: int = 256,
-                 device=None, tracer=None, metrics=None):
-        if tracer is not None or metrics is not None:
-            raise NotImplementedError(
-                f"the tracer and live metrics are not ported yet: {_ITEM_6}")
+                 device=None, tracer=None, metrics=None,
+                 metrics_every: int = 0, metrics_sink=None):
         if not tf.supports_slot_serving(cfg):
             raise ValueError(
                 f"{cfg.name}: slot serving needs input_mode='tokens' and no "
@@ -159,6 +169,10 @@ class ServingEngine:
         self.caches = None            # allocated per run
         self.stats_reducer = stats_reducer
         self.drafter = drafter
+        self.tracer = tracer
+        self.metrics = metrics
+        self.metrics_every = int(metrics_every)
+        self.metrics_sink = metrics_sink
         self.prefix_enabled = bool(prefix_cache)
         self.prefix_cache_nodes = int(prefix_cache_nodes)
         if self.prefix_enabled and self.prefix_cache_nodes < 1:
@@ -308,6 +322,18 @@ class EngineSession:
         self.decode_ticks = 0            # ticks that ran the decode step
         self.verify_ticks = 0            # ticks that ran the verify step
         self._t0 = time.perf_counter()
+        # observability: the replica this session's trace events carry (the
+        # fleet runner stamps it), and this tick's TTFT and latency
+        # observations for the streaming histograms
+        self.trace_replica = 0
+        self._tick_ttfts: list = []
+        self._tick_lats: list = []
+        if self.prefix is not None:
+            # through a weak reference: a cycle through the trie's hook
+            # would hold the session's caches past its last use
+            session = weakref.ref(self)
+            self.prefix.on_event = (
+                lambda name, **attrs: session()._prefix_event(name, **attrs))
         if self.prefix is not None and isinstance(engine.drafter,
                                                   NgramDrafter) \
                 and engine.drafter.corpus is None:
@@ -345,9 +371,24 @@ class EngineSession:
         controller)."""
         self.sched.release(slot, self.now)
         freed[slot] = True
+        if req.latency is not None:
+            self._tick_lats.append(req.latency)
+        tr = self.engine.tracer
+        if tr is not None:
+            tr.event("commit", self.now, rid=req.rid,
+                     replica=self.trace_replica, slot=int(slot),
+                     n_tokens=len(req.tokens), done=True,
+                     latency_ticks=req.latency)
         if req.spec is not None:
             self.engine.drafter.release(slot)
             self._ctrls.pop(req.rid, None)
+
+    def _prefix_event(self, name: str, **attrs) -> None:
+        """Prefix-trie detail events (insert, evict, hit) to the tracer;
+        one ``is None`` check when tracing is off."""
+        tr = self.engine.tracer
+        if tr is not None:
+            tr.event(name, self.now, replica=self.trace_replica, **attrs)
 
     def _unpin(self, slot: int) -> None:
         """Drop a slot's prefix-trie pin (if any) and its history note:
@@ -378,6 +419,14 @@ class EngineSession:
         prefix_hits = 0
         prefix_reused = 0
         freed = np.zeros(eng.n_slots, bool)
+        # observability: the sinks are read once a tick (they may attach
+        # late), and the scheduler gets the tracer so that shed and preempt
+        # events come from where they are decided
+        tr = eng.tracer
+        sched.tracer = tr
+        sched.trace_replica = self.trace_replica
+        self._tick_ttfts = []
+        self._tick_lats = []
 
         # --- SLO hooks: shed hopeless queued work, then evict the slots
         # the policy wants for waiting higher-priority requests (no-ops
@@ -421,6 +470,12 @@ class EngineSession:
                 self._resume_last[slot] = int(req.tokens[-1])
                 resumed += len(req.tokens)
                 req.resumed_tokens += len(req.tokens)
+                if tr is not None:
+                    tr.event("resume", now, rid=req.rid,
+                             replica=self.trace_replica, slot=int(slot),
+                             journal_tokens=len(req.tokens),
+                             preemptions=req.preemptions,
+                             failovers=req.failovers)
             start = 0
             if self.prefix is not None:
                 # adoption AFTER history normalization: a resumed request
@@ -437,8 +492,18 @@ class EngineSession:
                     req.prefix_reused += p
                     prefix_hits += 1
                     prefix_reused += p
+                    if tr is not None:
+                        tr.event("prefix_adopt", now, rid=req.rid,
+                                 replica=self.trace_replica,
+                                 slot=int(slot), tokens_reused=p)
                 self._prefix_hist[slot] = tuple(history)
             self.pending_chunks[slot] = eng._chunk_plan(history, start=start)
+            if tr is not None:
+                tr.event("admit", now, rid=req.rid,
+                         replica=self.trace_replica, slot=int(slot),
+                         prompt_len=len(req.prompt),
+                         chunks=len(self.pending_chunks[slot]),
+                         resumed=bool(req.tokens))
             sampling.set_slot(samp, slot, req.sampling)
             if req.spec is not None:
                 self._ctrls[req.rid] = AdaptiveDraftController(req.spec)
@@ -466,6 +531,11 @@ class EngineSession:
                               if sampled_req else None))
             req.prefilled += len(chunk)
             chunks_fed += 1
+            if tr is not None:
+                tr.event("prefill_chunk", now, rid=req.rid,
+                         replica=self.trace_replica, slot=int(slot),
+                         chunk_tokens=len(chunk), final=final,
+                         prefilled=req.prefilled)
             if self.prefix is not None:
                 # snapshot the row at every chunk-grid boundary: there it
                 # is a pure function of history[:p] and the grid, so any
@@ -490,6 +560,12 @@ class EngineSession:
                     tok = int(tok)
                     req.tokens.append(tok)
                     req.t_first = now
+                    self._tick_ttfts.append(req.ttft)
+                    if tr is not None:
+                        tr.event("commit", now, rid=req.rid,
+                                 replica=self.trace_replica, slot=int(slot),
+                                 n_tokens=1, first_token=True,
+                                 ttft_ticks=req.ttft)
                     if req.deadline is not None \
                             and not req.deadline_counted and now > req.deadline:
                         req.deadline_counted = True
@@ -517,6 +593,11 @@ class EngineSession:
                 d = eng.drafter.propose(slot, req, k_eff)[:k_eff]
                 if d:
                     drafts[slot] = [int(t) for t in d]
+                if tr is not None:
+                    tr.event("draft", now, rid=req.rid,
+                             replica=self.trace_replica, slot=int(slot),
+                             k_eff=int(k_eff), proposed=len(d),
+                             drafter=drafter_label(eng.drafter))
 
         if decodable:
             active = np.zeros(eng.n_slots, bool)
@@ -563,6 +644,11 @@ class EngineSession:
                     accepted += n - 1
                     if req.spec is not None:
                         self._ctrls[req.rid].update(nd, n - 1)
+                    if tr is not None:
+                        tr.event("verify", now, rid=req.rid,
+                                 replica=self.trace_replica, slot=int(slot),
+                                 n_draft=nd, accepted=n - 1,
+                                 committed=len(emit))
                     if req.done:
                         self._release(slot, req, freed)
             else:
@@ -575,6 +661,9 @@ class EngineSession:
                 self.decode_ticks += 1
                 toks = toks.cpu().numpy()
                 self._guard(decodable, [toks[s] for s in decodable])
+                if tr is not None:
+                    tr.event("decode", now, replica=self.trace_replica,
+                             n_active=len(decodable))
                 for slot, req in decodable.items():
                     req.tokens.append(int(toks[slot]))
                     self.last[slot] = toks[slot]
@@ -582,6 +671,10 @@ class EngineSession:
                     if req.sampling is not None \
                             and not req.sampling.greedy:
                         sampled_tokens += 1
+                    if tr is not None:
+                        tr.event("commit", now, rid=req.rid,
+                                 replica=self.trace_replica, slot=int(slot),
+                                 n_tokens=1)
                     if req.done:
                         self._release(slot, req, freed)
 
@@ -589,8 +682,8 @@ class EngineSession:
             self.caches = tf.reset_cache_slots(self.caches, freed)
             for slot in np.flatnonzero(freed):
                 sampling.set_slot(samp, int(slot), None)
-        # the stats row BY NAME through the drift guard; the fleet's
-        # counters (item 2c) stay 0 here
+        # the stats row BY NAME through the drift guard; failovers and
+        # quarantines are the fleet's control-plane counts (serving/fleet.py)
         vec = stats_vector({
             "queue_depth": sched.arrived_depth(now),
             "active_slots": len(sched.active),
@@ -609,7 +702,23 @@ class EngineSession:
             "prefix_hits": prefix_hits,
             "prefix_tokens_reused": prefix_reused,
         })
+        metrics = eng.metrics
+        if metrics is not None:
+            # the histogram increments ride the same b=1 stats reduction as
+            # a fixed-width tail; counts land in the histograms only through
+            # the reduced vector, so one engine and a fleet agree
+            vec = vec + metrics.row(self._tick_ttfts, self._tick_lats)
         self.log.step(now, vec)
+        if metrics is not None:
+            metrics.absorb(self.log.last_reduced[len(STATS_FIELDS):])
+            every = eng.metrics_every
+            if every > 0 and (now + 1) % every == 0:
+                snap = metrics.snapshot()
+                if eng.metrics_sink is not None:
+                    eng.metrics_sink(now, snap)
+                if tr is not None:
+                    tr.event("metrics", now, replica=self.trace_replica,
+                             **snap)
         self.now += 1
         return vec
 
@@ -656,4 +765,6 @@ class EngineSession:
         report["verify_ticks"] = self.verify_ticks
         report["policy"] = sched.policy.name
         report["slo"] = slo_report(sched.finished + sched.shed_requests)
+        if self.engine.metrics is not None:
+            report["live_metrics"] = self.engine.metrics.snapshot()
         return report

@@ -51,7 +51,7 @@ class SlotScheduler:
         self._slots: list = [None] * n_slots     # slot -> Request | None
         self._finished: list = []
         self._shed: list = []
-        # observability (queue 1's item 6): the engine session re-stamps these
+        # observability (repro_torch.obs): the engine session re-stamps these
         # every tick so shed/preempt decisions trace at the decision site;
         # None = tracing off (the default, one is-None check per event).
         self.tracer = None

@@ -12,26 +12,29 @@ go through the port's :func:`~repro_torch.core.collectives.all_reduce` on
 a :class:`~repro_torch.core.transport.LocalTransport`. For the 64-byte row
 the cost model's switch picks the ring at p = 4 and the dual-root tree at
 p = 8 and above (as the reference's does); the tree's fused engine folds
-each step's blocks with the ``combine3`` kernel on a card.
-The reference's ``obs`` probe hook comes with queue 1's item 6.
+each step's blocks with the ``combine3`` kernel on a card. Under an
+installed :mod:`repro_torch.obs.probe` each reduction lands one timed
+sample.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
-from repro_torch.core.collectives import CollectiveConfig, all_reduce
+from repro_torch.core.collectives import CollectiveConfig, _pick, all_reduce
+from repro_torch.obs import probe as _obs_probe
 
 __all__ = ["STATS_FIELDS", "STATS_COLLECTIVE", "stats_vector",
            "make_stats_reducer", "StepStats", "TelemetryLog"]
 
 # field order of the per-tick stats vector (summed across replicas), the
-# reference's: the counters of queue 1's items 2b and 2c (drafts,
-# failovers, preemptions, shedding, prefix hits) stay 0 in the port until
-# those items land; new counters are APPENDED, so positional slices hold
+# reference's: failovers and quarantines are the fleet's control-plane
+# counts (0 on an engine's own row, added by serving/fleet.py's runner);
+# new counters are APPENDED, so positional slices hold
 STATS_FIELDS = ("queue_depth", "active_slots", "new_tokens", "prefills",
                 "prefill_chunks", "sampled_tokens", "drafted_tokens",
                 "accepted_tokens", "failovers", "resumed_tokens",
@@ -83,7 +86,31 @@ def make_stats_reducer(comm=None,
                 f"stats rows {arr.shape} do not match the {p} replicas "
                 f"(want 1 or {p} rows)")
         x = torch.from_numpy(arr).to(comm.device)
-        return all_reduce(x, comm, collective)[0].cpu().numpy()
+        probe = _obs_probe.active()
+        if probe is None:
+            return all_reduce(x, comm, collective)[0].cpu().numpy()
+        # a timed sample at the host boundary: CUDA events around the
+        # reduction and a synchronize on the card, the host clock on the
+        # CPU; the method and blocks resolved through the same _pick the
+        # collective uses, so the sample labels what ran
+        nbytes = arr.shape[1] * 4
+        algo, nb, hier_spec, _ = _pick(collective.method, p, nbytes,
+                                       collective, "float32")
+        if x.is_cuda:
+            ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ends[0].record()
+            out = all_reduce(x, comm, collective)
+            ends[1].record()
+            torch.cuda.synchronize(x.device)
+            wall = ends[0].elapsed_time(ends[1]) / 1e3
+        else:
+            t0 = time.perf_counter()
+            out = all_reduce(x, comm, collective)
+            wall = time.perf_counter() - t0
+        probe.note(algo, p, nbytes,
+                   nb if nb is not None else collective.num_blocks or 1,
+                   kind="timed", wall_s=wall, levels=hier_spec)
+        return out[0].cpu().numpy()
 
     return reduce
 
@@ -117,12 +144,17 @@ class TelemetryLog:
         self._reduce = reducer or (
             lambda stacked: np.asarray(stacked, np.float32).sum(0))
         self.steps: list = []
+        # the whole reduced vector of the latest tick, with any payload
+        # appended past STATS_FIELDS (the obs histogram tail, which
+        # StepStats leaves out); None before the first tick
+        self.last_reduced = None
 
     def step(self, tick: int, local_vec) -> StepStats:
         """Record one tick. ``local_vec`` is this replica's row (k,) or a
         stacked (p, k) matrix of every replica's row."""
         vec = np.atleast_2d(np.asarray(local_vec, np.float32))
         red = self._reduce(vec)
+        self.last_reduced = np.asarray(red)
         s = StepStats(tick, *(float(x) for x in red[:len(STATS_FIELDS)]))
         self.steps.append(s)
         return s

@@ -832,3 +832,76 @@ def test_init_params_on_the_card_are_the_cpus(cuda):
             bi = b.view(torch.int32).long()
             order = [torch.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ai, bi)]
             assert int((order[0] - order[1]).abs().max()) <= 2
+
+
+def _fleet_engine(cuda):
+    from repro_torch.configs.base import decode_config, get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+    cfg = dataclasses.replace(
+        decode_config(get_config("minicpm_2b", reduced=True)), kv_quant=True)
+    params = tf.init_params(cfg, 0, cuda)
+    return cfg, ServingEngine(cfg, None, params, n_slots=2, max_len=64,
+                              prefill_chunk=16, device=cuda)
+
+
+def test_fleet_under_chaos_on_the_card_keeps_the_streams(cuda):
+    """Reduced MiniCPM-2B with the int8 cache, 3 replicas on the card under
+    a kill, a flap with a straggler, and poison: every stream bitwise the
+    undisturbed run's (the orphans resume through prefill chunks beside
+    other neighbours), the poisoned replica quarantined."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.chaos import Fault, FaultPlan
+    from repro_torch.serving import FleetRunner, SamplingParams
+    cfg, eng = _fleet_engine(cuda)
+
+    def reqs():
+        out = serve.synthetic_workload(8, cfg.vocab_size, gap=1, seed=3,
+                                       prompt_lens=(5, 40), max_new=(8, 16))
+        for r in out:
+            if r.rid % 2:
+                r.sampling = SamplingParams(seed=11 + r.rid,
+                                            temperature=0.9, top_k=20)
+        return out
+
+    want = eng.run(reqs())["tokens"]
+    plans = {"kill": (Fault(5, "kill", replica=1),),
+             "flap": (Fault(4, "flap", replica=1, duration=8),
+                      Fault(3, "straggle", replica=0, duration=6,
+                            factor=2.0)),
+             "poison": (Fault(6, "poison", replica=2),)}
+    for name, faults in plans.items():
+        rep = FleetRunner(eng, 3, plan=FaultPlan(faults), timeout_s=2.0,
+                          rejoin_backoff_s=1.0).run(reqs())
+        assert rep["tokens"] == want, name
+        assert rep["failovers"] > 0, name
+        if name == "flap":
+            assert rep["rejoins"] == 1 and rep["alive"] == [0, 1, 2]
+        if name == "poison":
+            assert rep["quarantined"] == [2]
+
+
+def test_nan_scale_slot_gives_nonfinite_logits_through_the_kernels(cuda):
+    """A slot whose int8 scales are NaN (``poison_slot``) gives non-finite
+    logits out of the card's dequantize and ``ring_attention``, and only
+    that slot: the guard sees the poison the CPU's plain versions carry."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.chaos import poison_slot
+    from repro_torch.serving import Request
+    cfg, eng = _fleet_engine(cuda)
+    sess = eng.start([Request(i, tuple(range(3 + i, 23 + i)),
+                              max_new_tokens=8) for i in range(2)])
+    while len(sess.sched.active) < 2 or \
+            any(r.state.name != "ACTIVE" for r in sess.sched.active.values()):
+        sess.tick()
+    sess.caches = poison_slot(sess.caches, 1)
+    assert all(bool(c["ks"][:, 1].isnan().all()) and
+               not bool(c["ks"][:, 0].isnan().any()) for c in sess.caches)
+    before = ring_attention.ring_attention.launches
+    logits, _ = tf.decode_step(
+        eng.params, cfg,
+        {"tokens": torch.tensor([[5], [7]], device=cuda)}, sess.caches,
+        active=np.ones(2, bool))
+    assert ring_attention.ring_attention.launches - before == cfg.n_layers
+    assert bool(torch.isfinite(logits[0]).all())
+    assert not bool(torch.isfinite(logits[1]).any())

@@ -441,15 +441,19 @@ def test_poisoned_logits_commit_nothing():
 
 
 def test_engine_refuses_what_is_not_ported():
+    """Tensor parallelism stays refused with item 4; the tracer and the
+    live metrics (item 6) are ported and taken."""
+    from repro_torch import obs
     cfg, eng = _engine()
     p = _params("tiny")[3]
-    for kw, item in ((dict(metrics=object()), "item 6"),
-                     (dict(tracer=object()), "item 6"),
-                     (dict(pcfg=base.ParallelConfig(tp_shards=2)),
-                      "item 4")):
-        kw.setdefault("pcfg", None)
-        with pytest.raises(NotImplementedError, match=item):
-            serving.ServingEngine(cfg, params=p, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        serving.ServingEngine(cfg, base.ParallelConfig(tp_shards=2), p,
+                              device="cpu")
+    traced = serving.ServingEngine(cfg, None, p, device="cpu",
+                                   tracer=obs.Tracer(),
+                                   metrics=obs.StreamingMetrics(),
+                                   metrics_every=2)
+    assert traced.metrics_every == 2 and traced.metrics_sink is None
     with pytest.raises(ValueError, match="exceeds"):
         eng.run([serving.Request(0, (1,) * 4, max_new_tokens=30)])
     with pytest.raises(NotImplementedError, match="item 7"):
@@ -461,9 +465,9 @@ def test_engine_refuses_what_is_not_ported():
 
 def test_continuous_cli_runs_and_refuses_later_flags(capsys, tmp_path):
     """``--continuous`` end to end on reduced MiniCPM-2B on the CPU (its
-    decode config, greedy then sampled); the flags of items 2c, 6 and 4
-    stay refused with their item; ``--autotune-cache`` sets the cache
-    path."""
+    decode config, greedy then sampled); ``--mesh`` (item 4) stays refused
+    with its item and the fleet's flags (item 2c) run; ``--autotune-cache``
+    sets the cache path."""
     argv = ["--arch", "minicpm_2b", "--reduced", "--continuous",
             "--requests", "6", "--slots", "3", "--prompt-len", "20", "80",
             "--prefill-chunk", "16", "--device", "cpu"]
@@ -483,14 +487,18 @@ def test_continuous_cli_runs_and_refuses_later_flags(capsys, tmp_path):
         assert autotune.default_cache_path() == path
     finally:
         autotune.set_cache_path(None)
-    for flag, item in (("--heartbeat-misses=2", "item 2c"),
-                       ("--rejoin-backoff=1", "2c"), ("--replicas=2", "2c"),
-                       ("--chaos-seed=1", "2c"), ("--trace-out=x", "item 6"),
-                       ("--mesh=1x2", "item 4")):
-        with pytest.raises(SystemExit) as e:
-            serve.main(["--reduced", "--device", "cpu", flag])
-        assert e.value.code == 2
-        assert item in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--reduced", "--device", "cpu", "--mesh=1x2"])
+    assert e.value.code == 2
+    assert "item 4" in capsys.readouterr().err
+    # the fleet's flags (item 2c) run: a chaos run on the CPU
+    fleet = serve.main(["--arch", "minicpm_2b", "--reduced", "--device",
+                        "cpu", "--requests", "3", "--slots", "2",
+                        "--prompt-len", "4", "12", "--chaos-seed", "3",
+                        "--replicas", "3", "--heartbeat-timeout=2",
+                        "--heartbeat-misses=2", "--rejoin-backoff=1"])
+    assert fleet["mode"] == "fleet" and fleet["requests"] == 3
+    assert "0 diverged streams" in capsys.readouterr().out
     for bad in (["--slots", "0"], ["--prompt-len", "5", "2"],
                 ["--top-p", "0"], ["--arrival-gap", "-1"]):
         with pytest.raises(SystemExit):
