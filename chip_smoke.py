@@ -141,9 +141,38 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    over its members at p = 3, 2, 3 (``plan_remesh``) on ``LocalTransport``
    under an installed probe, each sum numpy's, and the probe's alpha-beta
    fit (of the stacked transport on one card, not of a link) or the
-   fitter's refusal.
+   fitter's refusal;
+12. the MoE sublayers at full width: Mixtral-8x22B and Llama-4 Scout with
+   every published width (d_model, heads, head_dim 128, d_ff per expert,
+   experts, top-k, vocabulary, Mixtral's window of 4096, Scout's chunk of
+   8192), depth cut to 4 layers (Scout's whole period), bf16 weights drawn
+   on the card, the int8 K/V cache forced on; (a) Mixtral through
+   ``serve_loop`` at phase 5's step shape (batch 16, 32 steps), its logits
+   within ``LOGIT_TOL`` of the run with the plain ring attention and the
+   plain int8 kernels and its tokens equal at a clear margin; then the
+   same step with each row its own random prompt of 4600 tokens (past the
+   window; the ring wraps) and its own tokens: every kernel call held
+   against its plain version on its own inputs (the fused write and the
+   dequantize bitwise, ``ring_attention`` within ``FLASH_TOL``), the tokens
+   against the plain run's at a clear margin with the routing held, the
+   median step and one traced step's device split with the MoE sublayers'
+   share and the routing's host syncs; (b) Mixtral through ``ServingEngine`` (8
+   slots, prompts of 512 to 4608 tokens in chunks of 1024, 8 to 16 new
+   tokens): run A at capacity factor ``n_experts`` (no slot dropped), B
+   with n-gram speculation, its streams bitwise A's, C at the config's 1.25
+   with the real tokens' slots dropped per prefill chunk, and A's per-tick
+   stats reduced over 8 replicas (``combine3``); (c) Scout's continuous
+   engine (4 slots, prompts of 8100 to 8400 tokens sharing 4096, across
+   the 8192 chunk boundary) without and with the prefix cache, the streams
+   bitwise equal; in (b) and (c) a prefill chunk across the window or the
+   chunk boundary, a decode tick and a verify tick over every slot, at
+   the engine's shapes, each kernel call held against its plain version
+   as in (a) and the tokens against the plain calls'; one fused write and
+   one ring attention per layer for
+   every decode or verify tick and prefill chunk, two dequantizes each;
+   each part's seconds and peak memory.
 
-In phases 3, 5, 7, 8, 9, 10 and 11 the kernels' launch counters are zeroed
+In phases 3, 5, 7, 8, 9, 10, 11 and 12 the kernels' launch counters are zeroed
 just before the main path and read just after, and must show that the
 kernels carried it.
 It prints the card's name and power limit, one JSON line of kernel numbers,
@@ -274,6 +303,46 @@ FLEET = dict(replicas=3, slots=4, cache_len=4096, prefill_chunk=512,
              requests=12, gap=1, seed=3, prompt_lens=(256, 1024),
              max_new=(6, 12), timeout=2.0, rejoin_backoff=1.0,
              metrics_every=4)
+# phase 12: the MoE sublayers at full width, Mixtral-8x22B and Llama-4
+# Scout. Every published width stays (d_model, heads, head_dim, d_ff per
+# expert, experts, top-k, vocabulary, window, chunk); depth is cut from 56
+# and 48 layers to 4 (Scout's one whole period: 3 chunked-RoPE layers and a
+# global NoPE layer), about 10.4 B parameters (20.8 GB in bf16) each, which
+# one 80 GB card holds beside the caches. Fewer layers make the host's
+# share of a step larger. The int8 K/V cache is forced on (the dry run's
+# rule keeps it off below n_kv_heads * head_dim = 2048; both are 8 * 128),
+# so the path runs the fused write and the dequantize as phase 5 does.
+MOE = dict(layers=4, seed=0)
+# 12a: phase 5's step shape (batch 16, a ring of 8192, which Mixtral's
+# window of 4096 bounds to 4096), 32 greedy steps
+MOE_DECODE = dict(arch="mixtral_8x22b", batch=16, cache_len=8192, steps=32,
+                  prompt_len=4600, prefill_chunk=1024)
+# 12a's second run: the same step with each row its own random prompt of
+# prompt_len tokens (prefilled in chunks of prefill_chunk), so reads cross
+# the window and the ring wraps
+# 12b: 16 requests a tick apart into 8 slots, prompts of 512-4608 (reads
+# cross the window), chunks of 1024, 8-16 new tokens; repetitive text, so
+# that n-gram drafts exist
+MOE_SERVE = dict(arch="mixtral_8x22b", slots=8, cache_len=4736,
+                 prefill_chunk=1024, requests=16, gap=1, seed=12,
+                 prompt_lens=(512, 4608), max_new=(8, 16), draft_k=4,
+                 repetitive=True)
+# 12b's check of the slot path against the plain kernels: the slots
+# prefilled to these lengths (distinct random tokens), then row 0's next
+# chunk (3584..4607, across the window's 4096), a decode tick and a verify
+# tick over every slot
+MOE_SLOT_CHECK = dict(seed=14, lens=(3584, 4700, 4097, 2500, 1024, 333, 64, 7),
+                      across=4096)
+# 12c: 4 slots, prompts of 8100-8400 (a shared 4096-token prefix and a
+# suffix of 4004-4304), so attention crosses the 8192 chunk boundary;
+# chunks of 1024, 8-16 new tokens, a prefix trie of 16 nodes
+SCOUT_SERVE = dict(arch="llama4_scout_17b_a16e", slots=4, cache_len=8448,
+                   prefill_chunk=1024, requests=4, gap=1, seed=13,
+                   shared_prefix=4096, prompt_lens=(4004, 4304),
+                   max_new=(8, 16), prefix_nodes=16)
+# 12c's check as 12b's: row 0's chunk 7400..8423 crosses the chunk
+# boundary 8192
+SCOUT_SLOT_CHECK = dict(seed=15, lens=(7400, 8300, 5000, 900), across=8192)
 # phase 7: MiniCPM-2B training, cut from the reference's train_4k cell
 # (seq 4096, global batch 256) to the batch one 80 GB card holds
 TRAIN = dict(arch="minicpm_2b", seq_len=4096, global_batch=4, accum=1,
@@ -1813,25 +1882,49 @@ def _leaves(tree):
     return [tree]
 
 
-def greedy_gap(got, want, tol: float) -> dict:
-    """Two greedy ``serve_loop`` runs (``keep_logits``) on the same params:
-    the largest |got - want| over max |want| of each step's logits, over the
-    steps fed the same tokens, and the tokens that differ there where
-    ``want``'s top-2 margin exceeds twice ``tol`` of max |want|."""
-    parted = np.nonzero((got.tokens != want.tokens).any(0))[0]
-    steps = int(parted[0]) + 1 if len(parted) else want.tokens.shape[1]
+def logit_gap(got, want, tol: float) -> dict:
+    """Two sequences of logits (..., V), one entry a call fed the same
+    tokens: the largest |got - want| over max |want| of each entry, and the
+    argmaxes that differ where ``want``'s top-2 margin exceeds twice ``tol``
+    of max |want|."""
     worst, clear_n, wrong = 0.0, 0, 0
-    for i in range(steps):
-        b = want.logits[i].double()
-        a = got.logits[i].to(b.device).double()
+    for a, b in zip(got, want):
+        b = b.double()
+        a = a.to(b.device).double()
         top = float(b.abs().max())
         worst = max(worst, float((a - b).abs().max()) / top)
         top2 = torch.topk(b, 2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol * top
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * tol * top
         wrong += int((a.argmax(-1) != b.argmax(-1))[clear].sum())
         clear_n += int(clear.sum())
-    return {"err_share": worst, "steps": steps, "clear_tokens": clear_n,
-            "wrong_tokens": wrong,
+    return {"err_share": worst, "clear_tokens": clear_n,
+            "wrong_tokens": wrong}
+
+
+def check_gap(what: str, gap: dict) -> None:
+    if gap["wrong_tokens"] or not gap["err_share"] <= LOGIT_TOL:
+        raise AssertionError(f"{what} against the plain ring attention and "
+                             f"int8: {gap}, limit {LOGIT_TOL:.3e}")
+
+
+def check_tokens(what: str, gap: dict) -> None:
+    if gap["wrong_tokens"]:
+        raise AssertionError(f"{what} against the plain ring attention and "
+                             f"int8: clear-margin tokens differ: {gap}")
+
+
+def held_line(held: dict) -> str:
+    return ", ".join(f"{k} {v['calls']} calls, error {v['err']:.3e}"
+                     for k, v in held.items())
+
+
+def greedy_gap(got, want, tol: float) -> dict:
+    """Two greedy ``serve_loop`` runs (``keep_logits``) on the same params:
+    :func:`logit_gap` over the steps fed the same tokens."""
+    parted = np.nonzero((got.tokens != want.tokens).any(0))[0]
+    steps = int(parted[0]) + 1 if len(parted) else want.tokens.shape[1]
+    return {**logit_gap(got.logits[:steps], want.logits[:steps], tol),
+            "steps": steps,
             "same_tokens": bool(np.array_equal(got.tokens, want.tokens))}
 
 
@@ -2949,6 +3042,675 @@ def fleet_phase(dev, cfg, params) -> dict:
             "launches": launches, "stats": stats, "max_memory_bytes": peak}
 
 
+# --------------------------------------------------- MoE at full width
+
+def moe_config(arch: str, cf: float | None = None):
+    """``arch``'s decode config (bf16 weights) cut to ``MOE["layers"]``
+    layers, the int8 K/V cache forced on, at capacity factor ``cf``
+    (the config's own where None)."""
+    cfg = decode_config(get_config(arch))
+    moe = cfg.moe if cf is None else dataclasses.replace(
+        cfg.moe, capacity_factor=float(cf))
+    return dataclasses.replace(cfg, n_layers=MOE["layers"], kv_quant=True,
+                               moe=moe)
+
+
+def active_params(cfg, params) -> tuple:
+    """(all parameters, those a token touches): the reference's
+    ``active_param_count``, the stacked experts counted at top_k of
+    n_experts."""
+    total = sum(t.numel() for t in _leaves(params))
+    frac = 1.0 - cfg.moe.top_k / cfg.moe.n_experts
+    idle = sum(sp[k].numel() * frac for layer in params["layers"]
+               for sp in layer if "w_in" in sp and sp["w_in"].dim() == 4
+               for k in ("w_in", "w_out", "w_gate") if k in sp)
+    return total, int(total - idle)
+
+
+@contextlib.contextmanager
+def moe_watch(watch: dict):
+    """Count the MoE sublayer calls (each copies its experts' counts to the
+    host once: the routing's sync) and, where ``watch`` has ``"length"``
+    set by the caller, the (token, choice) slots of real tokens that the
+    dispatch drops in a call of more than one token per row."""
+    saved = tf._moe_dispatch, tf.moe_route
+
+    def dispatch(*a, **kw):
+        watch["calls"] += 1
+        return saved[0](*a, **kw)
+
+    def route(logits, k, C):
+        out = saved[1](logits, k, C)
+        if logits.shape[1] > 1 and watch.get("length") is not None:
+            order, keep = out[2], out[4]
+            real = (order // k) < watch["length"]
+            watch["dropped"][-1] += int((real & ~keep).sum())
+        return out
+
+    tf._moe_dispatch, tf.moe_route = dispatch, route
+    try:
+        yield
+    finally:
+        tf._moe_dispatch, tf.moe_route = saved
+
+
+def moe_split(step, L: int) -> dict:
+    """One traced call of ``step`` (warm): :func:`device_breakdown`, then a
+    second traced call with each MoE sublayer inside a ``record_function``
+    range: the device time of the kernels, copies and fills launched
+    inside the ranges (matched by the launches' correlation ids in the
+    profiler's Chrome trace) is the MoE's share of the busy time, and the
+    ranges' host time its share of the step's host time."""
+    trace = device_breakdown(step, top=10)
+    from torch.profiler import ProfilerActivity, profile, record_function
+    saved = tf._moe_dispatch
+    calls = [0]
+
+    def ranged(*a, **kw):
+        calls[0] += 1
+        with record_function("moe_sublayer"):
+            return saved(*a, **kw)
+
+    tf._moe_dispatch = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        tf._moe_dispatch = saved
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "moe_step.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == "moe_sublayer" and e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and any(a <= e["ts"] <= b for a, b in spans)}
+    moe_ms = sum(e["dur"] for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and e.get("args", {}).get("correlation") in launched) / 1e3
+    host_ms = sum(b - a for a, b in spans) / 1e3
+    if calls[0] != L or len(spans) != L or not moe_ms > 0:
+        raise AssertionError(f"the traced step ran {calls[0]} MoE sublayers "
+                             f"({len(spans)} ranges; want {L}) with "
+                             f"{moe_ms} ms of device time")
+    trace.update(moe_device_ms=moe_ms,
+                 moe_share_of_busy=moe_ms / trace["device_busy_ms"],
+                 moe_host_ms=host_ms, routing_host_syncs=calls[0])
+    return trace
+
+
+def moe_decode(dev, cfg, params) -> dict:
+    """12a: Mixtral's fixed-batch greedy decode through ``serve_loop``, its
+    logits within ``LOGIT_TOL`` of the run with the plain ring attention
+    and the plain int8 kernels, tokens equal at a clear margin; then the
+    same step at the same batch past the window, each row its own random
+    prompt and tokens: every kernel call held against its plain version on
+    its own inputs (:func:`kernels_held`), the tokens against the plain
+    run's at a clear margin (:func:`against_plain`), timed and traced."""
+    L, B, steps = cfg.n_layers, MOE_DECODE["batch"], MOE_DECODE["steps"]
+    args = serve_args(arch=MOE_DECODE["arch"], batch=B,
+                      cache_len=MOE_DECODE["cache_len"], steps=steps,
+                      seed=MOE["seed"])
+    watch = {"calls": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    with moe_watch(watch):
+        run = serve.serve_loop(args, cfg, params, keep_logits=True)
+    torch.cuda.synchronize()
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"quantize_int8_into": L * steps, "dequantize_int8": 2 * L * steps,
+            "ring_attention": L * steps, "quantize_int8": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"12a launches {launches}: want {want}")
+    if watch["calls"] != L * steps:
+        raise AssertionError(f"12a ran {watch['calls']} MoE sublayers")
+    if run.logits.shape != (steps, B, cfg.vocab_size) or \
+            not bool(torch.isfinite(run.logits).all()):
+        raise AssertionError("12a logits not finite or of the wrong shape")
+    with plain_ring(), plain_int8():
+        plain = serve.serve_loop(args, cfg, params, keep_logits=True)
+    gap = greedy_gap(run, plain, LOGIT_TOL)
+    del plain
+    check_gap("12a", gap)
+    secs = run.step_seconds
+    steady = float(np.median(secs[1:]))
+    log(f"  12a decode: {steps} steps, batch {B}, median step "
+        f"{steady * 1e3:.2f} ms ({B / steady:.1f} tokens/s), first "
+        f"{secs[0]:.3f} s, peak {peak / 1e9:.2f} GB, launches {launches}; "
+        f"against the plain ring attention and int8: logit error "
+        f"{gap['err_share']:.3e} of max|logit| (limit {LOGIT_TOL:.3e}) over "
+        f"{gap['steps']} steps, {gap['clear_tokens']} clear-margin tokens "
+        f"equal, all tokens equal: {gap['same_tokens']}")
+    del run
+    # serve_loop starts every row at token 0, so its rows stay one stream
+    # at positions 0..steps-1: the same step shape again, each row holding
+    # its own random prompt past the window and fed its own random token a
+    # step, as served text would route and read
+    P = MOE_DECODE["prompt_len"]
+    caches = fixed_prefilled(cfg, params, dev, B, MOE_DECODE["cache_len"],
+                             P, MOE["seed"] + 5)
+    gen = torch.Generator(device=dev).manual_seed(MOE["seed"] + 6)
+    feed = [{"tokens": torch.randint(1, cfg.vocab_size, (B, 1),
+                                     generator=gen, device=dev)}
+            for _ in range(steps)]
+    step = step_fns.make_serve_step(cfg)
+    spread = []
+
+    def run(cs, timed):
+        out = []
+        for inputs in feed:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            logits, cs = step(params, inputs, cs)
+            torch.cuda.synchronize()
+            if timed:
+                spread.append(time.perf_counter() - ts)
+            out.append(logits)
+        return out, cs
+
+    held = {}
+    with kernels_held(held):
+        run(clone_caches(caches), False)
+    (got, caches), (want, _), routes = against_plain(
+        run, (caches, True), (clone_caches(caches), False))
+    fed = {**logit_gap(got, want, LOGIT_TOL), "moved_tokens": routes.moved,
+           "moved_worst_margin": routes.worst_margin, "kernels": held}
+    check_tokens("12a, a random prompt and token a row", fed)
+    del got, want
+    distinct = float(np.median(spread[1:]))
+    ring = caches[0]["k"].shape[2]
+    log(f"  12a with a random prompt of {P} tokens and a random token a "
+        f"row (positions {P}..{P + steps - 1}, ring {ring}, window "
+        f"{cfg.pattern[0][0].sliding_window}): median step "
+        f"{distinct * 1e3:.2f} ms over {steps} steps; every kernel call "
+        f"against its plain version on its own inputs: {held_line(held)}; "
+        f"the logits against the plain run, routed as the kernels' run "
+        f"({fed['moved_tokens']} router near-ties fell otherwise, margins "
+        f"up to {fed['moved_worst_margin']:.3e}): error "
+        f"{fed['err_share']:.3e} of max|logit|, {fed['clear_tokens']} "
+        f"clear-margin tokens equal")
+    trace = moe_split(lambda: step(params, feed[0], caches), L)
+    log(f"  12a one step traced: "
+        f"{trace['device_ops']} device operations, busy "
+        f"{trace['device_busy_ms']:.2f} ms of {trace['traced_wall_ms']:.2f} "
+        f"(idle {trace['device_idle_share']:.3f}); the MoE sublayers "
+        f"{trace['moe_device_ms']:.2f} ms of device time "
+        f"({trace['moe_share_of_busy']:.3f} of busy) and "
+        f"{trace['moe_host_ms']:.2f} ms of host time, "
+        f"{trace['routing_host_syncs']} routing host syncs a step: "
+        f"{json.dumps(trace['top_kernels'])}")
+    del caches, feed
+    return {"launches": launches, "max_memory_bytes": peak,
+            "median_step_s": steady, "first_step_s": secs[0],
+            "tokens_per_s": B / steady, "vs_plain": gap,
+            "distinct_rows_median_step_s": distinct,
+            "distinct_rows_tokens_per_s": B / distinct,
+            "distinct_rows_vs_plain": fed, "trace": trace,
+            "routing_host_syncs_per_step": L}
+
+
+class Routes:
+    """The MoE routing of one run, to route a second run as the first did.
+    A run under :meth:`record` keeps each router call's top-k ids, in call
+    order; the same calls under :meth:`replay` take them, once every token
+    whose own top-k differs is shown to sit at a near-tie of its router:
+    two neighbours among its k+1 largest logits within ``LOGIT_TOL`` of the
+    call's largest |logit|. The kernels and the plain versions round a
+    hidden state differently, so such a tie may fall either way, and a
+    token sent to another expert comes out another token; with the routing
+    held, what is left between the two runs is the kernels' rounding."""
+
+    def __init__(self):
+        self.ids, self.moved, self.worst_margin = [], 0, 0.0
+
+    @contextlib.contextmanager
+    def _top_k(self, fn):
+        saved = tf._top_k
+        tf._top_k = fn
+        try:
+            yield
+        finally:
+            tf._top_k = saved
+
+    def record(self):
+        orig = tf._top_k
+
+        def top_k(logits, k):
+            v, i = orig(logits, k)
+            self.ids.append(i)
+            return v, i
+        return self._top_k(top_k)
+
+    def replay(self):
+        orig, calls = tf._top_k, iter(self.ids)
+
+        def top_k(logits, k):
+            want = next(calls)
+            v, mine = orig(logits, k + 1)
+            gap = (v[..., :-1] - v[..., 1:]).amin(-1)
+            differ = (mine[..., :k] != want).any(-1)
+            if bool(differ.any()):
+                margin = float(gap[differ].max() / logits.abs().amax())
+                if not margin <= LOGIT_TOL:
+                    raise AssertionError(
+                        f"a token routed otherwise than in the kernels' run "
+                        f"at a top-{k} margin of {margin:.3e} of max|logit| "
+                        f"(a near-tie is within {LOGIT_TOL:.3e})")
+                self.moved += int(differ.sum())
+                self.worst_margin = max(self.worst_margin, margin)
+            return torch.gather(logits, -1, want), want
+        return self._top_k(top_k)
+
+
+@contextlib.contextmanager
+def kernels_held(worst: dict):
+    """While the slot and decode paths run their kernels, hold every call
+    of the three against its plain version on the same inputs: the fused
+    write's ring bytes and scales (written by the plain version into
+    copies) and the dequantize bitwise, ``ring_attention`` within
+    ``FLASH_TOL`` by :func:`ring_err` over the queries with a position to
+    read. ``worst`` gets each kernel's calls and its largest error (the
+    count of differing elements for the bitwise two)."""
+    into, deq, ring = saved = (quantize.quantize_int8_into,
+                               quantize.dequantize_int8,
+                               ring_attention.ring_attention)
+    for name in ("quantize_int8_into", "dequantize_int8", "ring_attention"):
+        worst.setdefault(name, {"calls": 0, "err": 0.0})
+
+    def note(name: str, err: float, limit: float, what) -> None:
+        worst[name]["calls"] += 1
+        worst[name]["err"] = max(worst[name]["err"], err)
+        if not err <= limit:
+            raise AssertionError(f"{name} against its plain version at "
+                                 f"{what}: error {err:.3e} > {limit:.1e}")
+
+    def held_into(k, v, k_ring, v_ring, k_scale, v_scale, pos, n):
+        rings = (k_ring, v_ring, k_scale, v_scale)
+        copies = [t.clone() for t in rings]
+        ref.quantize_int8_into_ref(k, v, *copies, pos, n)
+        into(k, v, *rings, pos, n)
+        note("quantize_int8_into",
+             float(sum(int((a != b).sum()) for a, b in zip(rings, copies))),
+             0.0, (tuple(k.shape), tuple(k_ring.shape)))
+
+    def held_deq(q, scale, dtype=torch.float32):
+        out = deq(q, scale, dtype)
+        want = ref.dequantize_int8_ref(q, scale, dtype)
+        note("dequantize_int8", float((out != want).sum()), 0.0,
+             tuple(q.shape))
+        return out
+
+    def held_ring(q, k, v, plan, window=None, chunk=None):
+        out = ring(q, k, v, plan, window, chunk)
+        want = ref.ring_attention_ref(q, k, v, plan, window, chunk)
+        keep = ring_attention.valid(plan, q.shape[1], k.shape[1], window,
+                                    chunk)
+        note("ring_attention", ring_err(out, want, keep),
+             fa.FLASH_TOL[q.dtype],
+             (tuple(q.shape), tuple(k.shape), window, chunk))
+        return out
+
+    # each wrapper counts its launches on the module's attribute
+    for f in (held_into, held_deq, held_ring):
+        f.launches = 0
+    quantize.quantize_int8_into, quantize.dequantize_int8 = held_into, \
+        held_deq
+    ring_attention.ring_attention = held_ring
+    try:
+        yield
+    finally:
+        (quantize.quantize_int8_into, quantize.dequantize_int8,
+         ring_attention.ring_attention) = saved
+
+
+def against_plain(run, *args, held: dict | None = None) -> tuple:
+    """``run(*args[0])`` with the kernels, then ``run(*args[1])`` with the
+    plain ring attention and int8 (each call its own arguments, where a
+    call writes them), the second routed as the first (:class:`Routes`);
+    with ``held``, the first under :func:`kernels_held`. Returns (kernels'
+    result, plain result, routes)."""
+    routes = Routes()
+    with routes.record(), (kernels_held(held) if held is not None
+                           else contextlib.nullcontext()):
+        got = run(*args[0])
+    with routes.replay(), plain_ring(), plain_int8():
+        want = run(*args[1])
+    return got, want, routes
+
+
+def clone_caches(caches: tuple) -> tuple:
+    return tuple({k: v.clone() for k, v in c.items()} for c in caches)
+
+
+@torch.no_grad()
+def fixed_prefilled(cfg, params, dev, B: int, cache_len: int, P: int,
+                    seed: int) -> tuple:
+    """Fixed-batch caches (``tf.init_cache``) at position ``P``, row ``b``
+    holding its own ``P`` random tokens: prefilled with the kernels into
+    per-slot caches of the same geometry, all rows in each call, in chunks
+    of ``MOE_DECODE["prefill_chunk"]``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(1, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    caches = tf.init_cache(cfg, B, cache_len, device=dev, per_slot=True)
+    C = MOE_DECODE["prefill_chunk"]
+    for s in range(0, P, C):
+        part = prompt[:, s:s + C]
+        _, caches = tf.prefill_step(params, cfg, {"tokens": part}, caches,
+                                    [part.shape[1]] * B, resume=s > 0)
+    return tuple({**c, "pos": c["pos"][:, 0].clone()} for c in caches)
+
+
+@torch.no_grad()
+def slot_vs_plain(name: str, cfg, params, dev, spec: dict, plan: dict
+                  ) -> dict:
+    """Hold the slot path's kernels against their plain versions at the
+    engine's shapes: per-slot caches of ``spec``'s geometry (the engine's
+    ring slack), row ``b`` prefilled with the kernels with
+    ``plan["lens"][b]`` distinct random tokens through the engine's
+    prefill step, in its chunks and buckets; then row 0's next
+    ``prefill_chunk`` random tokens as one chunk (across
+    ``plan["across"]``), one decode tick and one verify tick of
+    ``draft_headroom`` random drafts over every slot. Each of the three
+    calls runs with the kernels, each kernel call held against its plain
+    version on the same inputs (:func:`kernels_held`), and again from the
+    same caches with the plain ring attention and int8, routed alike
+    (:func:`against_plain`): the argmax equal at a clear margin, and the
+    logits' error reported."""
+    engine = ServingEngine(cfg, None, params, n_slots=spec["slots"],
+                           max_len=spec["cache_len"],
+                           prefill_chunk=spec["prefill_chunk"], device=dev)
+    B, C, k = spec["slots"], engine.prefill_chunk, engine.draft_headroom
+    caches = tf.init_cache(cfg, B, spec["cache_len"], device=dev,
+                           per_slot=True, ring_slack=k)
+    gen = torch.Generator(device=dev).manual_seed(plan["seed"])
+
+    def rand(*shape):
+        return torch.randint(1, cfg.vocab_size, shape, generator=gen,
+                             device=dev)
+
+    for b, n in enumerate(plan["lens"]):
+        prompt = rand(1, n)
+        for s in range(0, n, C):
+            part = prompt[:, s:s + C]
+            buf = torch.zeros((1, engine._bucket(part.shape[1])),
+                              dtype=torch.int64, device=dev)
+            buf[:, :part.shape[1]] = part
+            _, caches = engine._prefill(params, buf, caches, b,
+                                        part.shape[1], resume=s > 0)
+    start = int(caches[0]["pos"][0, 0])
+    if not start < plan["across"] < start + C:
+        raise AssertionError(f"{name}: the checked chunk {start}..."
+                             f"{start + C - 1} does not cross "
+                             f"{plan['across']}")
+    gaps, held, act = {}, {}, np.ones(B, bool)
+    calls = {
+        "chunk": (lambda cs: tf.prefill_step(
+            params, cfg, {"tokens": chunk}, tf.cache_row(cs, 0), [C],
+            resume=True)),
+        "decode": (lambda cs: tf.decode_step(
+            params, cfg, {"tokens": tick}, cs, active=act)),
+        "verify": (lambda cs: tf.verify_forward(
+            params, cfg, {"tokens": drafts}, cs))}
+    chunk, tick, drafts = rand(1, C), rand(B, 1), rand(B, k + 1)
+    for what, call in calls.items():
+        (got, rows), (want, _), routes = against_plain(
+            call, (caches,), (clone_caches(caches),), held=held)
+        if what == "chunk":
+            caches = step_fns._splice_pos(caches, rows, 0)
+        elif what == "decode":
+            caches = rows
+        gaps[what] = {**logit_gap([got], [want], LOGIT_TOL),
+                      "moved_tokens": routes.moved,
+                      "moved_worst_margin": routes.worst_margin}
+        check_tokens(f"{name}'s {what}", gaps[what])
+    pos = caches[0]["pos"][0].tolist()
+    log(f"  {name}, the kernels against their plain versions at the "
+        f"engine's shapes: a {C}-token chunk at {start}..."
+        f"{start + C - 1} (across {plan['across']}), a decode tick and a "
+        f"verify tick of {k + 1} tokens over {B} slots at positions {pos}; "
+        f"every kernel call on its own inputs: {held_line(held)}; the "
+        f"logits against the plain calls, routed as the kernels' "
+        f"({sum(g['moved_tokens'] for g in gaps.values())} router near-ties "
+        f"fell otherwise): error " + ", ".join(
+            f"{w} {g['err_share']:.3e}" for w, g in gaps.items())
+        + f" of max|logit|, "
+        f"{sum(g['clear_tokens'] for g in gaps.values())} clear-margin "
+        f"tokens equal")
+    del caches, engine
+    return {"chunk_start": start, "positions": pos, "gaps": gaps,
+            "kernels": held}
+
+
+def moe_workload(spec: dict, vocab: int, draft=None) -> list:
+    return serve.synthetic_workload(
+        spec["requests"], vocab, gap=spec["gap"], seed=spec["seed"],
+        prompt_lens=spec["prompt_lens"], max_new=spec["max_new"],
+        spec=draft, repetitive=spec.get("repetitive", False),
+        shared_prefix=spec.get("shared_prefix", 0))
+
+
+def moe_run(name: str, cfg, params, dev, spec: dict, draft=None,
+            watch=None, **kw) -> tuple:
+    """One engine run of ``spec``'s workload, the kernels' launches counted
+    and held to one fused write and one ring attention per layer for every
+    decode or verify tick and prefill chunk, two dequantizes each; every
+    request ends with its budget. Returns (report, line)."""
+    engine = ServingEngine(cfg, None, params, n_slots=spec["slots"],
+                           max_len=spec["cache_len"],
+                           prefill_chunk=spec["prefill_chunk"], device=dev,
+                           **kw)
+    reqs = moe_workload(spec, cfg.vocab_size, draft)
+    watch = watch if watch is not None else {"calls": 0}
+    if "dropped" in watch:
+        prefill = engine._prefill
+
+        def counted(params_, tokens, caches, slot, length, **kw_):
+            watch["length"] = int(length)
+            watch["dropped"].append(0)
+            try:
+                return prefill(params_, tokens, caches, slot, length, **kw_)
+            finally:
+                watch["length"] = None
+        engine._prefill = counted
+    torch.cuda.synchronize()
+    zero_counters()
+    with moe_watch(watch):
+        rep = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = counters()
+    L = cfg.n_layers
+    calls = L * (rep["decode_ticks"] + rep["verify_ticks"]
+                 + rep["prefill_chunks"])
+    want = {"quantize_int8_into": calls, "dequantize_int8": 2 * calls,
+            "ring_attention": calls, "quantize_int8": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{name} launches {launches}: want {want}")
+    short = [r.rid for r in reqs if len(r.tokens) != r.max_new_tokens]
+    if rep["requests"] != len(reqs) or short:
+        raise AssertionError(f"{name}: requests {short} did not end with "
+                             "their max_new_tokens")
+    line = {"ticks": rep["ticks"], "decode_ticks": rep["decode_ticks"],
+            "verify_ticks": rep["verify_ticks"],
+            "prefill_chunks": rep["prefill_chunks"],
+            "total_tokens": rep["total_tokens"], "wall_s": rep["wall_s"],
+            "tokens_per_s": rep["tok_s"],
+            "ttft_ticks_p50": rep["ttft_ticks_p50"],
+            "ttft_ticks_p95": rep["ttft_ticks_p95"],
+            "moe_calls": watch["calls"], "launches": launches}
+    log(f"  {name}: {rep['ticks']} ticks ({rep['decode_ticks']} decode, "
+        f"{rep['verify_ticks']} verify, {rep['prefill_chunks']} prefill "
+        f"chunks), {rep['total_tokens']} tokens in {rep['wall_s']:.3f} s, "
+        f"{rep['tok_s']:.2f} tokens/s; TTFT p50/p95 "
+        f"{rep['ttft_ticks_p50']}/{rep['ttft_ticks_p95']} ticks; "
+        f"{watch['calls']} MoE sublayer calls (one routing sync each)")
+    del engine
+    return rep, line
+
+
+def add_launches(total: dict, line: dict) -> None:
+    for k in WRAPPERS:
+        total[k] += line["launches"][k]
+
+
+def moe_phase(dev) -> dict:
+    """12a-12c; returns each part's numbers and the launches of every main
+    run (12a's kernel run, 12b's A, B and C, 12c's two runs)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"launches": {k: 0 for k in WRAPPERS}}
+    # ---- Mixtral-8x22B
+    t0 = time.perf_counter()
+    cfg = moe_config(MOE_DECODE["arch"])
+    full = get_config(MOE_DECODE["arch"])
+    log(f"  {cfg.name}: {cfg.n_layers} of {full.n_layers} layers (depth cut "
+        f"to fit one card; fewer layers make the host's share larger), "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+        f"{cfg.hdim}, {cfg.moe.n_experts} experts of d_ff {cfg.d_ff}, top-"
+        f"{cfg.moe.top_k}, vocab {cfg.vocab_size}, window "
+        f"{cfg.pattern[0][0].sliding_window}; bf16 weights, int8 K/V")
+    torch.cuda.reset_peak_memory_stats()
+    ti = time.perf_counter()
+    params = tf.init_params(cfg, MOE["seed"], dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - ti
+    n, active = active_params(cfg, params)
+    log(f"  weights drawn on the card in {init_s:.2f} s: {n} parameters "
+        f"({active} active a token), {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB")
+    mix = {"params": n, "active_params": active, "init_s": init_s}
+    mix["decode"] = moe_decode(dev, cfg, params)
+    add_launches(res["launches"], mix["decode"])
+    log(f"  12a seconds {time.perf_counter() - t0:.2f}")
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    E = cfg.moe.n_experts
+    full_cf = moe_config(MOE_DECODE["arch"], cf=E)
+    runs = {}
+    rep_a, runs["A"] = moe_run(f"12b A (FIFO, greedy, cf {E})", full_cf,
+                               params, dev, MOE_SERVE)
+    rep_b, runs["B"] = moe_run(
+        f"12b B (n-gram speculation, k {MOE_SERVE['draft_k']})", full_cf,
+        params, dev, MOE_SERVE, SpecParams(draft_k=MOE_SERVE["draft_k"]))
+    same_streams(rep_b, rep_a, "12b B (speculation)")
+    if not rep_b["verify_ticks"]:
+        raise AssertionError("12b B ran no verify tick")
+    runs["B"].update(drafted_tokens=rep_b["drafted_tokens"],
+                     accepted_tokens=rep_b["accepted_tokens"])
+    log(f"  12b B: streams bitwise A's; {rep_b['accepted_tokens']} of "
+        f"{rep_b['drafted_tokens']} drafts accepted")
+    drops = {"calls": 0, "dropped": []}
+    rep_c, runs["C"] = moe_run(
+        f"12b C (FIFO, greedy, cf {cfg.moe.capacity_factor})", cfg, params,
+        dev, MOE_SERVE, watch=drops)
+    per_chunk = drops["dropped"]
+    runs["C"].update(dropped_per_chunk=per_chunk,
+                     dropped_mean=float(np.mean(per_chunk)),
+                     dropped_max=int(max(per_chunk)),
+                     streams_equal_a=rep_c["tokens"] == rep_a["tokens"])
+    log(f"  12b C: real tokens' (token, expert) slots dropped per prefill "
+        f"chunk, summed over its {cfg.n_layers} layers: mean "
+        f"{runs['C']['dropped_mean']:.1f}, max {runs['C']['dropped_max']} "
+        f"over {len(per_chunk)} chunks; streams equal A's: "
+        f"{runs['C']['streams_equal_a']}")
+    for r in ("A", "B", "C"):
+        add_launches(res["launches"], runs[r])
+    vs_plain = slot_vs_plain("12b Mixtral", full_cf, params, dev, MOE_SERVE,
+                             MOE_SLOT_CHECK)
+    # A's per-tick stats rows as 8 replicas' sums, reduced on the card (b =
+    # 1 at p = 8: the dual-root tree, combine3 on the card)
+    rows = np.array([[getattr(t, f) for f in STATS_FIELDS]
+                     for t in rep_a["steps"]], np.float32)
+    replicas = np.stack([part.sum(0) for part in np.array_split(rows, 8)])
+    zero_counters()
+    summed = make_stats_reducer(LocalTransport(8, dev))(replicas)
+    res["launches"]["combine3"] += counters()["combine3"]
+    if not np.array_equal(summed, rows.sum(0)) or \
+            not counters()["combine3"]:
+        raise AssertionError(f"12b A's stats at p = 8: {summed} against "
+                             f"numpy {rows.sum(0)}, combine3 launches "
+                             f"{counters()['combine3']}")
+    log(f"  12b A's stats of {len(rows)} ticks reduced over 8 replicas on "
+        f"the card: numpy's sum, {counters()['combine3']} combine3 launches")
+    mix["continuous"] = {"runs": runs, "vs_plain": vs_plain,
+                         "max_memory_bytes": torch.cuda.max_memory_allocated(),
+                         "seconds": time.perf_counter() - t1}
+    log(f"  12b seconds {mix['continuous']['seconds']:.2f}, peak "
+        f"{mix['continuous']['max_memory_bytes'] / 1e9:.2f} GB")
+    mix["seconds"] = time.perf_counter() - t0
+    res["mixtral"] = mix
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- Llama-4 Scout
+    t2 = time.perf_counter()
+    full = get_config(SCOUT_SERVE["arch"])
+    E = full.moe.n_experts
+    cfg = moe_config(SCOUT_SERVE["arch"], cf=E)
+    kinds = ["chunk" if s.chunk_size else "global NoPE"
+             for layer in cfg.pattern for s in layer if s.kind == "attn"]
+    log(f"  {cfg.name}: {cfg.n_layers} of {full.n_layers} layers ({kinds}), "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+        f"{cfg.hdim}, {E} experts of d_ff {cfg.d_ff}, top-{cfg.moe.top_k} "
+        f"at cf {E}, vocab {cfg.vocab_size}, chunk "
+        f"{cfg.pattern[0][0].chunk_size}; bf16 weights, int8 K/V")
+    torch.cuda.reset_peak_memory_stats()
+    ti = time.perf_counter()
+    params = tf.init_params(cfg, MOE["seed"], dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - ti
+    n, active = active_params(cfg, params)
+    log(f"  weights drawn on the card in {init_s:.2f} s: {n} parameters "
+        f"({active} active a token)")
+    scout = {"params": n, "active_params": active, "init_s": init_s,
+             "runs": {}}
+    rep_p, scout["runs"]["plain"] = moe_run("12c (FIFO, greedy)", cfg,
+                                            params, dev, SCOUT_SERVE)
+    rep_q, scout["runs"]["prefix"] = moe_run(
+        "12c (prefix cache)", cfg, params, dev, SCOUT_SERVE,
+        prefix_cache=True, prefix_cache_nodes=SCOUT_SERVE["prefix_nodes"])
+    same_streams(rep_q, rep_p, "12c with the prefix cache")
+    longest = max(len(r.prompt) for r in moe_workload(SCOUT_SERVE,
+                                                      cfg.vocab_size))
+    chunk = cfg.pattern[0][0].chunk_size
+    if rep_q["prefix_hits"] < 1 or \
+            rep_q["prefill_chunks"] >= rep_p["prefill_chunks"] or \
+            longest <= chunk:
+        raise AssertionError(f"12c: {rep_q['prefix_hits']} prefix hits, "
+                             f"{rep_q['prefill_chunks']} chunks against "
+                             f"{rep_p['prefill_chunks']}, longest prompt "
+                             f"{longest} against the chunk {chunk}")
+    scout["runs"]["prefix"].update(prefix_hits=rep_q["prefix_hits"],
+                                   prefix_tokens_reused=rep_q[
+                                       "prefix_tokens_reused"])
+    log(f"  12c: streams with the prefix cache bitwise the plain run's "
+        f"({rep_q['prefix_hits']} hits, {rep_q['prefix_tokens_reused']} "
+        f"tokens reused), prompts up to {longest} tokens across the "
+        f"{chunk}-token chunk boundary")
+    for r in scout["runs"].values():
+        add_launches(res["launches"], r)
+    scout["vs_plain"] = slot_vs_plain("12c Scout", cfg, params, dev,
+                                      SCOUT_SERVE, SCOUT_SLOT_CHECK)
+    scout["max_memory_bytes"] = torch.cuda.max_memory_allocated()
+    scout["seconds"] = time.perf_counter() - t2
+    log(f"  12c seconds {scout['seconds']:.2f}, peak "
+        f"{scout['max_memory_bytes'] / 1e9:.2f} GB")
+    res["scout"] = scout
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3054,6 +3816,17 @@ def main() -> int:
     main_launches["combine3"] += fleet["launches"]["combine3"]
     log(f"phase 11 seconds {fleet['seconds']:.2f}")
     log("fleet path: " + json.dumps(fleet))
+    log("phase 12: the MoE sublayers, Mixtral-8x22B and Llama-4 Scout at "
+        "full width")
+    t12 = time.perf_counter()
+    moe = moe_phase(dev)
+    moe["seconds"] = time.perf_counter() - t12
+    for name in ("quantize_int8_into", "dequantize_int8", "ring_attention",
+                 "combine3"):
+        rows[name]["launches_by_path"]["moe"] = moe["launches"][name]
+        main_launches[name] += moe["launches"][name]
+    log(f"phase 12 seconds {moe['seconds']:.2f}")
+    log("moe path: " + json.dumps(moe))
     log(card)
     for name in ("combine3", "compress_bf16", "decompress_bf16",
                  "quantize_int8_into", "dequantize_int8",

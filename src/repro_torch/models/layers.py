@@ -7,7 +7,10 @@ This slice ports what the fixed-batch decode loop, the continuous-batching
 engine's slot steps and the short-sequence forward run: RMSNorm, the
 activations, RoPE (without M-RoPE), GQA attention with causal, window and
 chunk masks, the ring K/V cache in bf16 or int8 (one position for the whole
-batch, or one per row: :func:`attention_decode_slots`), and the MLP. ``attention`` at T > ``FLASH_THRESHOLD`` takes the flash path,
+batch, or one per row: :func:`attention_decode_slots`), the MLP, and the
+MoE experts' weights (:func:`moe_init`; the routing and the expert
+products are in :mod:`repro_torch.models.transformer`, as in the
+reference). ``attention`` at T > ``FLASH_THRESHOLD`` takes the flash path,
 as the reference does: :func:`repro_torch.kernels.flash_attention.flash_sdpa`,
 the hand-written kernel on a CUDA tensor and the port of the reference's
 ``_flash_sdpa`` on the CPU, differentiable either way.
@@ -35,7 +38,7 @@ __all__ = ["Params", "AttnConfig", "FLASH_THRESHOLD", "INIT_CHUNK",
            "dense_init", "rmsnorm_init", "rmsnorm", "act_fn", "rope_freqs", "apply_rope",
            "attention", "attention_decode", "attention_decode_slots",
            "ring_written_slots", "SERVE_ROWS", "serve_rows", "serve_matmul",
-           "serve_rmsnorm", "mlp"]
+           "serve_rmsnorm", "mlp", "moe_init"]
 
 Params = dict
 
@@ -458,3 +461,28 @@ def mlp(p: Params, x: torch.Tensor, activation: str,
     else:
         h = act_fn(activation)(h)
     return matmul(h, p["w_out"].to(x.dtype))
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts
+# --------------------------------------------------------------------------
+
+def moe_init(keys, d_model: int, d_ff: int, n_experts: int, gated: bool,
+             dtype=torch.float32, device=None) -> Params:
+    """The reference's ``moe_init`` for each key of ``keys`` (one per
+    period), stacked: each key splits in four, for the f32 ``router`` (D,
+    E) (scale 0.02) and the experts' ``w_in`` (E, D, F), ``w_out`` (E, F,
+    D) and ``w_gate`` (E, D, F) in ``dtype``, each expert stack one
+    ``dense_init`` draw (fan-in E, as the reference's). The reference's
+    dense-dispatch ``moe`` is called by none of its paths and has no
+    counterpart here."""
+    E = n_experts
+    ks = [threefry.split(k, 4) for k in keys]
+    p = _stacked([k[:1] for k in ks],
+                 {"router": ((d_model, E), 0.02)}, torch.float32, device)
+    shapes = {"w_in": ((E, d_model, d_ff), None),
+              "w_out": ((E, d_ff, d_model), None)}
+    if gated:
+        shapes["w_gate"] = ((E, d_model, d_ff), None)
+    p.update(_stacked([k[1:] for k in ks], shapes, dtype, device))
+    return p

@@ -31,19 +31,28 @@ will write first and :func:`commit_verify_caches` writes the rejected
 tokens' slots back; the reference scores into fresh arrays and restores
 from the old ones.
 
-This slice builds the dense decoders (sublayer kinds ``attn`` and ``mlp``,
-token inputs). A config with another kind, M-RoPE, embeddings input or an
-encoder is a valid config, but building or running its model raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+This slice builds the decoders of sublayer kinds ``attn``, ``mlp`` and
+``moe`` (token inputs). A config with another kind, M-RoPE, embeddings
+input or an encoder is a valid config, but building or running its model
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+
+MoE sublayers route each token to its ``top_k`` experts by the f32 router
+logits, as the reference does, in one of its two forms (``MoESettings.impl``):
+``dispatch`` (capacity per batch row, overflow dropped) and ``masked`` (every
+expert over every token, weighted). The port's ``dispatch`` runs each
+expert's products over its kept tokens only, which needs each expert's count
+on the host: one device-to-host copy per MoE sublayer and call.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -53,15 +62,15 @@ from repro_torch.models import layers as L
 from repro_torch.models.layers import Params
 
 __all__ = ["MoESettings", "SubSpec", "ModelConfig", "PORTED_KINDS",
-           "check_supported", "init_params", "init_cache", "embed_inputs",
-           "forward", "unembed", "chunked_ce_loss", "loss_fn", "decode_step",
+           "check_supported", "moe_capacity", "moe_route", "init_params",
+           "init_cache", "embed_inputs", "forward", "unembed", "chunked_ce_loss", "loss_fn", "decode_step",
            "advance_pos", "cache_layer_kinds", "prefill_call_bound",
            "supports_slot_serving", "reset_cache_slots", "cache_row",
            "prefill_step", "extract_cache_row", "adopt_prefix",
            "supports_speculation", "save_ring_slots", "restore_ring_slots",
            "verify_forward", "commit_verify_caches", "verify_accept"]
 
-PORTED_KINDS = ("attn", "mlp")
+PORTED_KINDS = ("attn", "mlp", "moe")
 REMAT_POLICIES = ("full", "dots")
 _KINDS_ITEM = ("ROADMAP.md queue 1, 'Next' item 3 (other sublayer kinds and "
                "inputs)")
@@ -178,13 +187,17 @@ def check_supported(cfg: ModelConfig) -> None:
 def _sub_init(keys, cfg: ModelConfig, s: SubSpec, device) -> Params:
     """The reference's ``_sub_init`` for each period key of ``keys``,
     stacked over periods: attention takes the first half of each key's
-    split in two, the MLP the key itself."""
+    split in two, the MLP and the MoE the key itself."""
     dt = cfg.param_dtype
     norm = L.rmsnorm_init(cfg.d_model, device=device, periods=len(keys))
     if s.kind == "attn":
         halves = [threefry.split(k, 2)[0] for k in keys]
         return {"norm": norm, **L.attn_init(halves, cfg.attn_cfg(s), dt,
                                             device)}
+    if s.kind == "moe":
+        return {"norm": norm, **L.moe_init(keys, cfg.d_model, cfg.d_ff,
+                                           cfg.moe.n_experts, cfg.gated_mlp,
+                                           dt, device)}
     return {"norm": norm, **L.mlp_init(keys, cfg.d_model, cfg.d_ff,
                                        cfg.gated_mlp, dt, device)}
 
@@ -273,6 +286,128 @@ def cache_layer_kinds(cfg: ModelConfig) -> tuple:
 
 
 # --------------------------------------------------------------------------
+# MoE implementations
+# --------------------------------------------------------------------------
+
+def moe_capacity(cfg: ModelConfig, T: int) -> int:
+    """The dispatch form's slots per expert and batch row for a call of
+    ``T`` tokens: ``ceil(T * top_k * capacity_factor / n_experts)``."""
+    m = cfg.moe
+    return int(math.ceil(T * m.top_k * m.capacity_factor / m.n_experts))
+
+
+def _top_k(logits: torch.Tensor, k: int) -> tuple:
+    """``jax.lax.top_k`` over the last axis: the k largest values and their
+    indices, ties to the lower index (a stable descending sort; ``topk``
+    promises no order among ties)."""
+    v, i = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _moe_aux(logits: torch.Tensor, topi: torch.Tensor, E: int):
+    """The Switch-style balance loss ``E * sum(mean softmax * mean
+    one-hot)`` over the call's tokens."""
+    me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))
+    ce = F.one_hot(topi, E).to(torch.float32).sum(2).mean(dim=(0, 1))
+    return E * torch.sum(me * ce)
+
+
+def _expert(p: Params, e: int, x: torch.Tensor, activation: str,
+            matmul) -> torch.Tensor:
+    """Expert ``e``'s gated MLP over the rows of ``x``."""
+    w = {n: p[n][e] for n in ("w_in", "w_out", "w_gate") if n in p}
+    return L.mlp(w, x, activation, matmul)
+
+
+def moe_route(logits: torch.Tensor, k: int, C: int) -> tuple:
+    """The dispatch form's routing of one call, per batch row: ``logits``
+    (B, T, E) f32 -> ``(topi (B, T, k), gates (B, T, k) f32, order,
+    seid, keep, dest)``, the last four (B, T * k) in the order of a stable
+    sort of the row's (token, choice) slots by expert (``order`` their
+    flat slot index ``t * k + j``, ``seid`` their expert). A slot is kept
+    while its rank within its expert's group is below ``C``, and ``dest``
+    is its place ``seid * C + rank`` in the reference's (E * C) buffer, or
+    ``E * C`` where it is dropped: the reference's values exactly."""
+    B, T, E = logits.shape
+    topv, topi = _top_k(logits, k)
+    gates = torch.softmax(topv, dim=-1)
+    eid = topi.reshape(B, T * k)
+    order = torch.argsort(eid, dim=1, stable=True)
+    seid = torch.gather(eid, 1, order)
+    experts = torch.arange(E, device=logits.device).expand(B, E)
+    starts = torch.searchsorted(seid, experts.contiguous())
+    rank = torch.arange(T * k, device=logits.device)[None] - \
+        torch.gather(starts, 1, seid)
+    keep = rank < C
+    dest = torch.where(keep, seid * C + rank, E * C)
+    return topi, gates, order, seid, keep, dest
+
+
+def _moe_dispatch(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  matmul=torch.matmul, aux: bool = True) -> tuple:
+    """The reference's sort-based capacity dispatch: per batch row each
+    expert takes at most ``moe_capacity(cfg, T)`` of the (token, choice)
+    slots routed to it, in token order, and a dropped slot contributes
+    zero. The reference computes each expert over a zero-padded (B, C)
+    buffer; here each expert's products run over its kept rows only, the
+    same function with less work. Each token's kept contributions (its
+    expert's output times its gate, both in x's dtype) are added into a
+    zero output: with ``top_k <= 2`` that sum is the same in any order (0
+    + a is exact and a + b = b + a), so ``index_add`` on the card gives the
+    reference's bits. Returns (out, aux), aux None unless asked for."""
+    m = cfg.moe
+    B, T, D = x.shape
+    E, k = m.n_experts, m.top_k
+    logits = matmul(x.to(torch.float32), p["router"].to(torch.float32))
+    topi, gates, order, seid, keep, _ = moe_route(logits, k,
+                                                  moe_capacity(cfg, T))
+    # the kept slots of every row, grouped by expert (a stable sort keeps
+    # each group in row and rank order); E marks a dropped slot
+    grouped = torch.where(keep, seid, E).reshape(-1)
+    by_expert = torch.argsort(grouped, stable=True)
+    counts = torch.bincount(grouped, minlength=E + 1).tolist()   # host sync
+    rows = (torch.arange(B, device=x.device)[:, None] * T + order // k)
+    rows = rows.reshape(-1)[by_expert]
+    gate = torch.gather(gates.reshape(B, T * k), 1, order).reshape(-1)[
+        by_expert]
+    xf = x.reshape(B * T, D)
+    kept = sum(counts[:E])
+    ys, start = [], 0
+    for e in range(E):
+        n = counts[e]
+        if n:
+            y = _expert(p, e, xf[rows[start:start + n]], cfg.activation,
+                        matmul)
+            ys.append(y * gate[start:start + n, None].to(y.dtype))
+        start += n
+    out = torch.zeros_like(xf)
+    if ys:
+        out = out.index_add(0, rows[:kept], torch.cat(ys))
+    return out.reshape(B, T, D), (_moe_aux(logits, topi, E) if aux
+                                  else None)
+
+
+def _moe_masked(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                matmul=torch.matmul, aux: bool = True) -> tuple:
+    """The reference's loop over experts with combine masking: every expert
+    over every token, its output times the token's combine weight (its gate
+    where the expert is chosen, else 0) added in expert order, in x's dtype.
+    E / top_k times the products of :func:`_moe_dispatch`, and no
+    capacity."""
+    m = cfg.moe
+    E = m.n_experts
+    logits = matmul(x.to(torch.float32), p["router"].to(torch.float32))
+    topv, topi = _top_k(logits, m.top_k)
+    comb = torch.zeros_like(logits).scatter(-1, topi,
+                                            torch.softmax(topv, dim=-1))
+    acc = torch.zeros_like(x)
+    for e in range(E):
+        y = _expert(p, e, x, cfg.activation, matmul)
+        acc = acc + y * comb[..., e, None].to(x.dtype)
+    return acc, (_moe_aux(logits, topi, E) if aux else None)
+
+
+# --------------------------------------------------------------------------
 # forward pass
 # --------------------------------------------------------------------------
 
@@ -286,15 +421,23 @@ def _period(tree, i: int):
 
 def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
                positions, cache, lengths=None, active=None,
-               serving: bool = False):
-    """One sublayer (``attn`` or ``mlp``: the entry points have checked the
-    config). A decode ``cache`` (one period's views) is written in place:
-    per-slot caches (``pos`` per row) through ``attention_decode_slots``,
-    with ``lengths`` (prefill pads) and ``active`` (rows to write).
-    ``serving`` (a call on per-slot caches) takes the norm and the MLP's
-    products through ``layers.serve_rows``, as ``attention_decode_slots``
-    takes its own."""
+               serving: bool = False, aux: bool = True):
+    """One sublayer (``attn``, ``mlp`` or ``moe``: the entry points have
+    checked the config); returns (x, the MoE balance loss or None). A
+    decode ``cache`` (one period's views) is written in place: per-slot
+    caches (``pos`` per row) through ``attention_decode_slots``, with
+    ``lengths`` (prefill pads) and ``active`` (rows to write). ``serving``
+    (a call on per-slot caches) takes the norm, the MLP's products and the
+    MoE's router and expert products through ``layers.serve_rows``, as
+    ``attention_decode_slots`` takes its own, so that a token's bits do not
+    depend on how many tokens share its call or its expert. ``aux=False``
+    (decoding) skips the balance loss."""
     h = (L.serve_rmsnorm if serving else L.rmsnorm)(sp["norm"], x)
+    mm = L.serve_matmul if serving else torch.matmul
+    if s.kind == "moe":
+        fn = _moe_dispatch if cfg.moe.impl == "dispatch" else _moe_masked
+        o, a = fn(sp, h, cfg, mm, aux)
+        return x + o, a
     if s.kind == "attn":
         acfg = cfg.attn_cfg(s)
         if cache is not None and cache["pos"].dim():
@@ -305,9 +448,8 @@ def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
         else:
             o = L.attention(sp, acfg, h, positions)
     else:
-        o = L.mlp(sp, h, cfg.activation,
-                  L.serve_matmul if serving else torch.matmul)
-    return x + o
+        o = L.mlp(sp, h, cfg.activation, mm)
+    return x + o, None
 
 
 # the weight products that "dots" keeps: no batch dimensions
@@ -326,14 +468,18 @@ _REMAT_KW = {"full": {},
 
 def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                positions, caches=None, lengths=None, active=None):
-    """Loop over periods (the reference scans); returns (x, caches). Decode
+    """Loop over periods (the reference scans); returns (x, aux, caches),
+    ``aux`` the MoE balance losses summed over every sublayer (None without
+    MoE, and when decoding, where it is unused). Decode
     writes each period's new K/V into the stacked caches in place (per-slot
-    caches: ``lengths`` and ``active`` as in ``attention_decode_slots``). Under
-    autograd with ``cfg.remat`` each sublayer is checkpointed under
+    caches: ``lengths`` and ``active`` as in ``attention_decode_slots``).
+    Under autograd with ``cfg.remat`` each sublayer is checkpointed under
     ``cfg.remat_policy``."""
     n = len(layer_params[0][0]["norm"]["scale"])
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     serving = caches is not None and _per_slot(caches)
+    want_aux = caches is None
+    aux = None
     if remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"{cfg.name}: remat_policy {cfg.remat_policy!r}; "
                          f"want one of {REMAT_POLICIES}")
@@ -347,13 +493,15 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                     ci += 1
                 sp = _period(layer_params[pos][si], i)
                 if remat:
-                    x = checkpoint(_apply_sub, sp, s, cfg, x, positions, c,
-                                   use_reentrant=False,
-                                   **_REMAT_KW[cfg.remat_policy])
+                    x, a = checkpoint(_apply_sub, sp, s, cfg, x, positions,
+                                      c, use_reentrant=False,
+                                      **_REMAT_KW[cfg.remat_policy])
                 else:
-                    x = _apply_sub(sp, s, cfg, x, positions, c, lengths,
-                                   active, serving)
-    return x, caches
+                    x, a = _apply_sub(sp, s, cfg, x, positions, c, lengths,
+                                      active, serving, want_aux)
+                if a is not None:
+                    aux = a if aux is None else aux + a
+    return x, aux, caches
 
 
 def embed_inputs(params: Params, cfg: ModelConfig, inputs: dict) -> tuple:
@@ -368,11 +516,13 @@ def embed_inputs(params: Params, cfg: ModelConfig, inputs: dict) -> tuple:
 
 def forward(params: Params, cfg: ModelConfig, inputs: dict) -> tuple:
     """Full-sequence forward -> (final hidden states, aux loss). The aux
-    loss is the MoE balance term, zero for the kinds this slice builds."""
+    loss is the MoE balance term summed over the MoE sublayers (zero
+    without them)."""
     check_supported(cfg)
     x, positions = embed_inputs(params, cfg, inputs)
-    x, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, positions)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rmsnorm(params["final_norm"], x), aux
 
 
@@ -418,7 +568,7 @@ def chunked_ce_loss(params: Params, cfg: ModelConfig, x: torch.Tensor,
 def loss_fn(params: Params, cfg: ModelConfig, inputs: dict,
             aux_weight: float = 0.01) -> tuple:
     """``(ce + aux_weight * aux, {"ce", "aux"})``; ``aux`` is the MoE
-    balance loss, 0 for the dense models this slice builds."""
+    balance loss, 0 for a model without MoE sublayers."""
     x, aux = forward(params, cfg, inputs)
     ce = chunked_ce_loss(params, cfg, x, inputs["labels"])
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
@@ -458,8 +608,8 @@ def decode_step(params: Params, cfg: ModelConfig, inputs: dict,
                              "(init_cache(per_slot=True))")
         active = _host_rows(active, B)
     x, _ = embed_inputs(params, cfg, inputs)
-    x, caches = _run_stack(params["layers"], cfg.pattern, cfg, x, None,
-                           caches, active=active)
+    x, _, caches = _run_stack(params["layers"], cfg.pattern, cfg, x, None,
+                              caches, active=active)
     if _per_slot(caches):
         x = L.serve_rmsnorm(params["final_norm"], x)
         logits = unembed(params, cfg, x, L.serve_matmul)[:, -1]
@@ -560,8 +710,8 @@ def prefill_step(params: Params, cfg: ModelConfig, inputs: dict,
         caches = tuple({**c, "pos": torch.where(act[None], 0, c["pos"])}
                        for c in caches)
     x, _ = embed_inputs(params, cfg, inputs)
-    x, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, None, caches,
-                      lengths=lengths, active=act)
+    x, _, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, None,
+                         caches, lengths=lengths, active=act)
     x = L.serve_rmsnorm(params["final_norm"], x)
     idx = host_to((lengths - 1).clamp_min(0), x.device)
     last = x[torch.arange(B, device=x.device), idx][:, None]
@@ -700,8 +850,8 @@ def verify_forward(params: Params, cfg: ModelConfig, inputs: dict,
         else torch.as_tensor(lengths).to("cpu", torch.int64).reshape(-1)
     old = save_ring_slots(caches, n * act)
     x, _ = embed_inputs(params, cfg, inputs)
-    x, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, None, caches,
-                      lengths=n, active=act)
+    x, _, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, None,
+                         caches, lengths=n, active=act)
     x = L.serve_rmsnorm(params["final_norm"], x)
     return unembed(params, cfg, x, L.serve_matmul).to(torch.float32), old
 

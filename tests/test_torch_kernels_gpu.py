@@ -490,14 +490,16 @@ def _check_ring_close(got, want, keep, dt):
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("D", [12, 64, 128])
-@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("rep", [1, 2, 5, 6])
 @pytest.mark.parametrize("mask", [(None, None), (8, None), (None, 16)])
 def test_ring_attention_matches_plain(mask, rep, D, dt, cuda):
     """Rows at a fresh ring, a wrapped ring and an inactive row, 1 to 200
     queries (more than one 64-row tile, and more than the ring holds),
     rings of a whole number of key blocks and not: each output element
     within the flash kernel's tolerance of its size plus its row's largest,
-    over the queries with a position to read; one launch a call."""
+    over the queries with a position to read; one launch a call. 5 and 6
+    query heads a K/V head are Llama-4 Scout's and Mixtral-8x22B's groups
+    (a query's heads then straddle the 64-row tiles)."""
     window, chunk = mask
     rng = np.random.default_rng(D + rep)
     for T in (1, 5, 33, 64, 200):
@@ -635,6 +637,128 @@ def test_slot_steps_give_a_token_the_same_bits_in_any_call(cuda):
     for c in first:
         for n in ("k", "v", "ks", "vs"):
             _assert_bitwise(c[n][:, 0, :25], c[n][:, 3, :25])
+
+
+def test_ring_attention_same_bits_at_the_moe_heads(cuda):
+    """Mixtral-8x22B's 48 query heads over 8 K/V heads and Llama-4 Scout's
+    40 over 8, head_dim 128, over a wrapped ring of 4096 (TMA) and of 4100
+    (a window's ring with the engine's draft slack: cp.async): the calls
+    of ``ring_attention.same_bits_pairs`` give bitwise the same outputs,
+    and the outputs are within the tolerance of the plain version."""
+    rng = np.random.default_rng(8)
+    first = torch.tensor([5000, 6100, 4200, 8000], device=cuda) - 37
+    for H, S, window in ((48, 4096, None), (48, 4100, 4096),
+                         (40, 4096, None), (40, 4100, 1000)):
+        q, k, v = _ring_case(rng, 4, 512, H, 8, 128, S, "bf16", cuda)
+        for what, one, got in ring_attention.same_bits_pairs(q, k, v, first,
+                                                             window):
+            _assert_bitwise(one, got)
+        plan = torch.stack([first, torch.full_like(first, 512)])
+        got = ring_attention.ring_attention(q, k, v, plan, window)
+        want = ref.ring_attention_ref(q, k, v, plan, window)
+        keep = ring_attention.valid(plan, 512, S, window)
+        _check_ring_close(got, want, keep.to(cuda), torch.bfloat16)
+
+
+def test_per_row_kv_write_at_the_moe_shapes(cuda):
+    """The MoE configs' slot rows (8 K/V heads of head_dim 128, bf16): a
+    decode tick of 16 rows at mixed positions over Mixtral's window ring
+    (4100 slots), inactive rows among them, a verify tick of 8 rows of 5,
+    and a 1024-token chunk of Scout's that wraps its chunk ring (8196)."""
+    rng = np.random.default_rng(14)
+    k, v, rings, scales = _rows_case(rng, 16, 1, 8, 128, 4100, "bf16", cuda)
+    pos = [0, 4099, 4100 + 5, 77] + [int(p) for p in rng.integers(0, 8200,
+                                                                   12)]
+    n = [1, 1, 1, 0] + [int(c) for c in rng.integers(0, 2, 12)]
+    _check_rows_write(k, v, rings, scales, pos, n)
+    k, v, rings, scales = _rows_case(rng, 8, 5, 8, 128, 4100, "bf16", cuda)
+    _check_rows_write(k, v, rings, scales,
+                      [0, 4098, 100, 2047, 4099, 777, 3000, 12],
+                      [1, 5, 0, 3, 5, 1, 3, 0])
+    k, v, rings, scales = _rows_case(rng, 1, 1024, 8, 128, 8196, "bf16",
+                                     cuda)
+    _check_rows_write(k, v, rings, scales, [7600], [900])
+
+
+def _moe_layer(cuda, E=8, D=6144, F=16384, top_k=2):
+    """Mixtral-8x22B's MoE sublayer at its published widths with random
+    bf16 experts and an f32 router, at capacity factor E (nothing drops),
+    and its config."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    cfg = get_config("mixtral_8x22b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=E, top_k=top_k, capacity_factor=float(E)))
+    g = torch.Generator(device=cuda).manual_seed(21)
+    p = {"router": torch.randn((D, E), generator=g, device=cuda) * 0.02}
+    for name, shape in (("w_in", (E, D, F)), ("w_gate", (E, D, F)),
+                        ("w_out", (E, F, D))):
+        p[name] = (torch.randn(shape, generator=g, device=cuda)
+                   / shape[1] ** 0.5).to(torch.bfloat16)
+    return tf, cfg, p
+
+
+def test_expert_products_give_a_row_the_same_bits_in_any_call(cuda):
+    """An expert's product through ``layers.serve_rows`` and the whole
+    dispatch sublayer on the slot path: a token's output row has the same
+    bits whether 1, 5, 40 or 512 tokens share the call (and its expert),
+    at Mixtral-8x22B's widths."""
+    from repro_torch.models import layers
+    tf, cfg, p = _moe_layer(cuda)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    x = torch.randn((1, 512, cfg.d_model), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    w = p["w_in"][3]
+    rows = {n: layers.serve_matmul(x[0, :n], w) for n in (1, 5, 40, 512)}
+    outs = {}
+    with torch.no_grad():
+        for n in (1, 5, 40, 512):
+            outs[n], _ = tf._moe_dispatch(p, x[:, :n], cfg,
+                                          layers.serve_matmul, aux=False)
+    for small, big in ((1, 5), (1, 40), (1, 512), (5, 40), (5, 512),
+                       (40, 512)):
+        _assert_bitwise(rows[big][:small], rows[small])
+        _assert_bitwise(outs[big][:, :small], outs[small])
+    assert bool(torch.isfinite(outs[512]).all())
+
+
+def test_moe_slot_steps_give_a_token_the_same_bits_in_any_call(cuda):
+    """Reduced Mixtral-8x22B with the int8 cache at full capacity: five
+    tokens through one verify call and through five decode ticks leave
+    the same ring bytes and logits."""
+    from repro_torch.configs.base import decode_config, get_config
+    from repro_torch.models import transformer as tf
+    cfg = decode_config(get_config("mixtral_8x22b", reduced=True))
+    cfg = dataclasses.replace(cfg, kv_quant=True, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    params = tf.init_params(cfg, 0, cuda)
+    prefill = step_fns.make_prefill_step(cfg)
+    rng = np.random.default_rng(5)
+    caches = tf.init_cache(cfg, 4, 96, device=cuda, per_slot=True,
+                           ring_slack=4)
+    for slot in range(4):
+        toks = rng.integers(1, cfg.vocab_size, 10 + 3 * slot)
+        caches = _prefill_all(prefill, params, caches, slot, toks, cuda,
+                              chunk=8)
+    seq = torch.from_numpy(rng.integers(1, cfg.vocab_size, (4, 5))).to(cuda)
+    clone = lambda cs: tuple({n: t.clone() for n, t in c.items()}  # noqa
+                             for c in cs)
+    with torch.no_grad():
+        dec, logits = clone(caches), []
+        for t in range(5):
+            lg, dec = tf.decode_step(params, cfg, {"tokens": seq[:, t:t + 1]},
+                                     dec, active=np.ones(4, bool))
+            logits.append(lg)
+        ver = clone(caches)
+        vl, old = tf.verify_forward(params, cfg, {"tokens": seq}, ver,
+                                    lengths=[5] * 4,
+                                    active=np.ones(4, bool))
+        ver = tf.commit_verify_caches(ver, old, [5] * 4, np.ones(4, bool))
+    for t in range(5):
+        _assert_bitwise(logits[t], vl[:, t])
+    for a, b in zip(dec, ver):
+        for n in ("k", "v", "ks", "vs"):
+            _assert_bitwise(a[n], b[n])
 
 
 def _prefill_all(prefill, params, caches, slot, toks, device, chunk=16):
