@@ -2,8 +2,9 @@
 
 Each wrapper in :mod:`repro_torch.kernels.block_combine`,
 :mod:`repro_torch.kernels.quantize`,
-:mod:`repro_torch.kernels.flash_attention` and
-:mod:`repro_torch.kernels.ring_attention` runs these for a tensor on the CPU;
+:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.ring_attention` and :mod:`repro_torch.kernels.wkv`
+runs these for a tensor on the CPU;
 ``chip_smoke.py`` and the GPU tests hold each CUDA kernel against them on the
 card. Two-op combines round the intermediate to the operand type, as the
 reference's jnp oracles do.
@@ -24,7 +25,8 @@ import torch
 __all__ = ["OPS", "INV127", "combine2_ref", "combine3_ref",
            "compress_bf16_ref", "decompress_bf16_ref", "quantize_int8_ref",
            "quantize_int8_into_ref", "dequantize_int8_ref",
-           "flash_attention_ref", "ring_attention_ref"]
+           "flash_attention_ref", "ring_attention_ref",
+           "wkv6_recurrent_ref"]
 
 # f32(1/127) (bits 0x3c010204), exact as a Python float
 INV127 = 0.007874015718698502
@@ -187,3 +189,39 @@ def ring_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~valid[:, None, None], -1e30)
     w = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bgrts,bsgd->btgrd", w, v).reshape(B, T, H, D)
+
+
+def wkv6_recurrent_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w_log: torch.Tensor, u: torch.Tensor,
+                       state: torch.Tensor, valid: torch.Tensor | None = None,
+                       collect: bool = False) -> tuple:
+    """The RWKV-6 WKV recurrence, token by token (the reference's
+    ``ssm.wkv_recurrent`` scan): r, k, v (B, T, H, K) in f32 or bf16,
+    w_log (B, T, H, K) f32, u (H, K) f32, state (B, H, K, K) f32, valid
+    (B, T) bool or None. In f32, with ``w = exp(w_log)``:
+    ``o_t = r_t . (S + diag(u) k_t v_t^T)``, then ``S <- diag(w_t) S +
+    k_t v_t^T`` where ``valid`` (an invalid token leaves S unchanged).
+    Returns (o (B, T, H, K) in r's dtype, the final state), or with
+    ``collect`` (o, states (B, T, H, K, K)), entry t the state after token
+    t."""
+    f32 = torch.float32
+    w = torch.exp(w_log.to(f32))
+    rs, ks, vs = (t.to(f32) for t in (r, k, v))
+    uu = u.to(f32)[None, :, :, None]
+    S = state.to(f32)
+    outs, states = [], []
+    for t in range(r.shape[1]):
+        kv = ks[:, t, :, :, None] * vs[:, t, :, None, :]
+        outs.append((rs[:, t, :, :, None] * (S + uu * kv)).sum(-2))
+        nxt = w[:, t, :, :, None] * S + kv
+        S = nxt if valid is None else torch.where(
+            valid[:, t, None, None, None], nxt, S)
+        if collect:
+            states.append(S)
+    B, T, H, K = r.shape
+    o = (torch.stack(outs, 1) if outs else
+         torch.zeros((B, 0, H, K), dtype=f32, device=r.device)).to(r.dtype)
+    if collect:
+        return o, (torch.stack(states, 1) if states else
+                   torch.zeros((B, 0, H, K, K), dtype=f32, device=r.device))
+    return o, S

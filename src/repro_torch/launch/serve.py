@@ -37,6 +37,15 @@ starting from token 0, with greedy argmax:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \\
       --reduced --device cpu
 
+RWKV-6 (recurrent state, no attention: ``--cache-len`` only bounds a
+prefill call) runs both ways:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b \\
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b \\
+      --reduced --continuous --speculate --prefix-cache --shared-prefix 16 \\
+      --prefill-chunk 8 --requests 6 --slots 3 --device cpu
+
 The config is the one the reference decodes with (``decode_config``):
 bf16 parameters, and the int8 K/V cache where ``n_kv_heads * head_dim >=
 2048`` (MiniCPM-2B at full width). Under bf16 compute, bf16 parameters give
@@ -87,11 +96,12 @@ class ServeRun:
 
 
 def serve_loop(args, cfg: tf.ModelConfig | None = None, params=None, *,
-               keep_logits: bool = False) -> ServeRun:
+               keep_logits: bool = False, first_tokens=None) -> ServeRun:
     """Greedy fixed-batch decode: ``args.batch`` rows, ``args.steps`` steps,
     a ring cache of ``args.cache_len``. ``cfg`` defaults to
     ``decode_config`` of ``args.arch``; ``params`` default to
-    ``init_params(cfg, args.seed)``."""
+    ``init_params(cfg, args.seed)``; ``first_tokens`` ((batch,) integers)
+    are the rows' first inputs, token 0 where None."""
     dev = resolve_device(args.device)
     if cfg is None:
         cfg = decode_config(get_config(args.arch, reduced=args.reduced))
@@ -101,6 +111,8 @@ def serve_loop(args, cfg: tf.ModelConfig | None = None, params=None, *,
     caches = tf.init_cache(cfg, args.batch, args.cache_len, device=dev)
     inputs = {"tokens": torch.zeros((args.batch, 1), dtype=torch.int64,
                                     device=dev)}
+    if first_tokens is not None:
+        inputs["tokens"][:, 0] = torch.as_tensor(first_tokens).to(dev)
 
     tokens_out, step_seconds, logits_out = [], [], []
     for _ in range(args.steps):

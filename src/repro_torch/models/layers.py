@@ -240,9 +240,17 @@ def serve_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return serve_rows(lambda r: r @ w, x)
 
 
-def serve_rmsnorm(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """:func:`rmsnorm` through :func:`serve_rows`."""
-    return serve_rows(lambda r: rmsnorm(p, r), x)
+def serve_rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """:func:`rmsnorm` with its one reduction, the mean of squares, through
+    :func:`serve_rows`: a row gets the bits of ``rmsnorm`` over calls of
+    :data:`SERVE_ROWS` rows. The elementwise rest runs over every row in
+    one call (an element's bits do not depend on the call's shape), so a
+    1024-token chunk costs about 15 launches a norm, not 8 calls of 8."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = serve_rows(lambda r: r.mean(-1, keepdim=True), x32 * x32)
+    return ((x32 * torch.rsqrt(var + eps)) * p["scale"]).to(dt)
 
 
 def _qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions,

@@ -31,10 +31,17 @@ will write first and :func:`commit_verify_caches` writes the rejected
 tokens' slots back; the reference scores into fresh arrays and restores
 from the old ones.
 
-This slice builds the decoders of sublayer kinds ``attn``, ``mlp`` and
-``moe`` (token inputs). A config with another kind, M-RoPE, embeddings
-input or an encoder is a valid config, but building or running its model
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+This slice builds the decoders of sublayer kinds ``attn``, ``mlp``,
+``moe`` and ``rwkv`` (token inputs). A config with another kind (``mamba``,
+``xattn``), M-RoPE, embeddings input or an encoder is a valid config, but
+building or running its model raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
+
+An ``rwkv`` sublayer (:mod:`repro_torch.models.ssm`) carries recurrent
+state instead of a ring: its cache is the token-shift carries and the WKV
+state, per row, with no position. The slot ops write those rows in place
+too; a verify call collects a state per token and
+:func:`commit_verify_caches` writes the accepted one.
 
 MoE sublayers route each token to its ``top_k`` experts by the f32 router
 logits, as the reference does, in one of its two forms (``MoESettings.impl``):
@@ -59,6 +66,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.core.transport import host_to, resolve_device
 from repro_torch.data import threefry
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models.layers import Params
 
 __all__ = ["MoESettings", "SubSpec", "ModelConfig", "PORTED_KINDS",
@@ -66,11 +74,12 @@ __all__ = ["MoESettings", "SubSpec", "ModelConfig", "PORTED_KINDS",
            "init_cache", "embed_inputs", "forward", "unembed", "chunked_ce_loss", "loss_fn", "decode_step",
            "advance_pos", "cache_layer_kinds", "prefill_call_bound",
            "supports_slot_serving", "reset_cache_slots", "cache_row",
-           "prefill_step", "extract_cache_row", "adopt_prefix",
+           "splice_row_pos", "prefill_step", "extract_cache_row",
+           "adopt_prefix",
            "supports_speculation", "save_ring_slots", "restore_ring_slots",
            "verify_forward", "commit_verify_caches", "verify_accept"]
 
-PORTED_KINDS = ("attn", "mlp", "moe")
+PORTED_KINDS = ("attn", "mlp", "moe", "rwkv")
 REMAT_POLICIES = ("full", "dots")
 _KINDS_ITEM = ("ROADMAP.md queue 1, 'Next' item 3 (other sublayer kinds and "
                "inputs)")
@@ -154,6 +163,10 @@ class ModelConfig:
             mrope_sections=self.mrope_sections,
             use_rope=s.use_rope)
 
+    def rwkv_cfg(self) -> ssm.RWKVConfig:
+        return ssm.RWKVConfig(d_model=self.d_model,
+                              head_dim=self.rwkv_head_dim)
+
 
 def _norm_pattern(pattern):
     return tuple(tuple(SubSpec(kind=s) if isinstance(s, str) else s
@@ -187,8 +200,11 @@ def check_supported(cfg: ModelConfig) -> None:
 def _sub_init(keys, cfg: ModelConfig, s: SubSpec, device) -> Params:
     """The reference's ``_sub_init`` for each period key of ``keys``,
     stacked over periods: attention takes the first half of each key's
-    split in two, the MLP and the MoE the key itself."""
+    split in two, the MLP, the MoE and the RWKV block the key itself. The
+    RWKV block has no ``norm``: it norms inside (``ln1``, ``ln2``)."""
     dt = cfg.param_dtype
+    if s.kind == "rwkv":
+        return ssm.rwkv_block_init(keys, cfg.rwkv_cfg(), dt, device)
     norm = L.rmsnorm_init(cfg.d_model, device=device, periods=len(keys))
     if s.kind == "attn":
         halves = [threefry.split(k, 2)[0] for k in keys]
@@ -239,21 +255,32 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> Params:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_dtype=torch.bfloat16, device=None, per_slot: bool = False,
                ring_slack: int = 0) -> tuple:
-    """Stacked ``(n_periods, ...)`` ring caches, one dict per attention
-    sublayer of the pattern: ``k``/``v`` ``(n_periods, batch, S, KV, dh)``
-    in ``kv_dtype``, or int8 with f32 scales ``ks``/``vs``
-    ``(n_periods, batch, S, KV, 1)`` when ``cfg.kv_quant``; ``S`` is
-    ``max_len``, or the window or chunk (plus ``ring_slack``) where one
-    bounds it. ``pos`` counts the tokens cached: ``(n_periods,)`` int32, or
-    ``(n_periods, batch)`` with ``per_slot`` (each row an independently
-    paced slot of the serving engine). It stays on the host, so the write
-    slot and the validity mask need no device sync."""
+    """Stacked ``(n_periods, ...)`` caches, one dict per attention or RWKV
+    sublayer of the pattern (:func:`cache_layer_kinds`). Attention: ring
+    caches ``k``/``v`` ``(n_periods, batch, S, KV, dh)`` in ``kv_dtype``,
+    or int8 with f32 scales ``ks``/``vs`` ``(n_periods, batch, S, KV, 1)``
+    when ``cfg.kv_quant``; ``S`` is ``max_len``, or the window or chunk
+    (plus ``ring_slack``) where one bounds it. ``pos`` counts the tokens
+    cached: ``(n_periods,)`` int32, or ``(n_periods, batch)`` with
+    ``per_slot`` (each row an independently paced slot of the serving
+    engine). It stays on the host, so the write slot and the validity mask
+    need no device sync. RWKV: the carries ``shift1``/``shift2``
+    ``(n_periods, batch, 1, D)`` in the compute dtype and the WKV
+    ``state`` ``(n_periods, batch, H, K, K)`` f32, zeros, one row per batch
+    row whatever ``per_slot``; ``max_len``, ``kv_dtype`` and
+    ``cfg.kv_quant`` do not touch them."""
     check_supported(cfg)
     dev = resolve_device(device)
     KV, dh, n = cfg.n_kv_heads, cfg.hdim, cfg.n_periods
     caches = []
     for layer in cfg.pattern:
         for s in layer:
+            if s.kind == "rwkv":
+                spec = ssm.rwkv_cache_spec(cfg.rwkv_cfg(), batch,
+                                           cfg.compute_dtype)
+                caches.append({name: torch.zeros((n, *shape), dtype=dt,
+                                                 device=dev)
+                               for name, (shape, dt) in spec.items()})
             if s.kind != "attn":
                 continue
             S = max_len
@@ -278,9 +305,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def cache_layer_kinds(cfg: ModelConfig) -> tuple:
-    """Kind of each entry of the caches tuple, in cache order (``"attn"``;
-    the reference's ``"mamba"`` and ``"rwkv"`` caches come with queue 1's
-    item 3)."""
+    """Kind of each entry of the caches tuple, in cache order: ``"attn"``
+    (a ring and ``pos``) or ``"rwkv"`` (the carries and the WKV state; the
+    reference's ``"mamba"`` caches come with queue 1's item 3)."""
     return tuple(s.kind for layer in cfg.pattern for s in layer
                  if s.kind in ("attn", "mamba", "rwkv"))
 
@@ -421,17 +448,23 @@ def _period(tree, i: int):
 
 def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
                positions, cache, lengths=None, active=None,
-               serving: bool = False, aux: bool = True):
-    """One sublayer (``attn``, ``mlp`` or ``moe``: the entry points have
-    checked the config); returns (x, the MoE balance loss or None). A
-    decode ``cache`` (one period's views) is written in place: per-slot
-    caches (``pos`` per row) through ``attention_decode_slots``, with
-    ``lengths`` (prefill pads) and ``active`` (rows to write). ``serving``
-    (a call on per-slot caches) takes the norm, the MLP's products and the
-    MoE's router and expert products through ``layers.serve_rows``, as
-    ``attention_decode_slots`` takes its own, so that a token's bits do not
-    depend on how many tokens share its call or its expert. ``aux=False``
-    (decoding) skips the balance loss."""
+               serving: bool = False, aux: bool = True, collect=None):
+    """One sublayer (``attn``, ``mlp``, ``moe`` or ``rwkv``: the entry
+    points have checked the config); returns (x, the MoE balance loss or
+    None). A decode ``cache`` (one period's views) is written in place:
+    per-slot caches (``pos`` per row) through ``attention_decode_slots``,
+    with ``lengths`` (prefill pads; host integers, an RWKV block's on the
+    device) and ``active`` (rows to write); an RWKV cache by
+    :func:`_apply_rwkv`. ``serving`` (a call on per-slot caches)
+    takes the norm, the MLP's products and the MoE's router and expert
+    products through ``layers.serve_rows``, as ``attention_decode_slots``
+    takes its own, so that a token's bits do not depend on how many tokens
+    share its call or its expert. ``aux=False`` (decoding) skips the
+    balance loss. ``collect`` (a list; a verify call) takes an RWKV
+    block's per-token checkpoints."""
+    if s.kind == "rwkv":
+        return _apply_rwkv(sp, cfg, x, cache, lengths, active, serving,
+                           collect), None
     h = (L.serve_rmsnorm if serving else L.rmsnorm)(sp["norm"], x)
     mm = L.serve_matmul if serving else torch.matmul
     if s.kind == "moe":
@@ -452,6 +485,42 @@ def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
     return x + o, None
 
 
+def _apply_rwkv(sp: Params, cfg: ModelConfig, x: torch.Tensor, cache,
+                lengths, active, serving: bool, collect) -> torch.Tensor:
+    """One RWKV block (``ssm.rwkv_block``), its products and norms through
+    ``layers.serve_rows`` when ``serving``. ``lengths`` ((B,) int64 on x's
+    device, or None) mark each row's real tokens. With a decode ``cache`` (one period's
+    views) the new carries and state are written into the rows ``active``
+    marks (every row where None), in place; with ``collect`` the block's
+    per-token checkpoints are appended to it instead and the cache is not
+    written."""
+    mm, norm = (L.serve_matmul, L.serve_rmsnorm) if serving \
+        else (torch.matmul, L.rmsnorm)
+    x, new = ssm.rwkv_block(sp, x, cfg.rwkv_cfg(), cache, lengths=lengths,
+                            collect_states=collect is not None, matmul=mm,
+                            norm=norm)
+    if collect is not None:
+        collect.append(new)
+    elif cache is not None:
+        _write_rows(cache, new, active)
+    return x
+
+
+def _write_rows(cache: Params, new: Params, rows=None) -> None:
+    """Copy ``new``'s leaves into ``cache``'s (batch first), in place: every
+    row, or the rows where ``rows`` (B,) host bools is True."""
+    if rows is None or bool(rows.all()):
+        for name, leaf in cache.items():
+            leaf.copy_(new[name])
+        return
+    picked = torch.nonzero(rows).flatten()
+    if not len(picked):
+        return
+    idx = host_to(picked, cache["state"].device)
+    for name, leaf in cache.items():
+        leaf.index_copy_(0, idx, new[name].index_select(0, idx))
+
+
 # the weight products that "dots" keeps: no batch dimensions
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -466,20 +535,39 @@ _REMAT_KW = {"full": {},
                  create_selective_checkpoint_contexts, _dots_policy)}}
 
 
+def _n_periods(tree) -> int:
+    """The period count of a stacked sublayer: the length of its first leaf
+    (a stacked tensor, or the train step's list of per-period leaves)."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return len(tree)
+
+
 def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
-               positions, caches=None, lengths=None, active=None):
+               positions, caches=None, lengths=None, active=None,
+               collect=None):
     """Loop over periods (the reference scans); returns (x, aux, caches),
     ``aux`` the MoE balance losses summed over every sublayer (None without
     MoE, and when decoding, where it is unused). Decode
-    writes each period's new K/V into the stacked caches in place (per-slot
-    caches: ``lengths`` and ``active`` as in ``attention_decode_slots``).
-    Under autograd with ``cfg.remat`` each sublayer is checkpointed under
+    writes each period's new K/V and RWKV carries into the stacked caches
+    in place (slot calls: ``lengths`` and ``active`` as in
+    ``attention_decode_slots``). ``collect`` (a dict; a verify call) gets,
+    for each RWKV cache's index, its per-token checkpoints period by
+    period, and those caches are not written. Under autograd with
+    ``cfg.remat`` each sublayer is checkpointed under
     ``cfg.remat_policy``."""
-    n = len(layer_params[0][0]["norm"]["scale"])
+    n = _n_periods(layer_params[0][0])
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
-    serving = caches is not None and _per_slot(caches)
+    serving = caches is not None and (active is not None
+                                      or _per_slot(caches))
     want_aux = caches is None
     aux = None
+    # an RWKV block reads the lengths on the device: one copy for the call
+    rwkv_lengths = None
+    if lengths is not None and any(s.kind == "rwkv" for layer in pattern
+                                   for s in layer):
+        rwkv_lengths = host_to(torch.as_tensor(lengths).to("cpu", torch.int64),
+                               x.device)
     if remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"{cfg.name}: remat_policy {cfg.remat_policy!r}; "
                          f"want one of {REMAT_POLICIES}")
@@ -487,9 +575,11 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
         ci = 0
         for pos, layer in enumerate(pattern):
             for si, s in enumerate(layer):
-                c = None
-                if caches is not None and s.kind == "attn":
+                c = col = None
+                if caches is not None and s.kind in ("attn", "rwkv"):
                     c = _period(caches[ci], i)
+                    if collect is not None and s.kind == "rwkv":
+                        col = collect.setdefault(ci, [])
                     ci += 1
                 sp = _period(layer_params[pos][si], i)
                 if remat:
@@ -497,8 +587,10 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                                       c, use_reentrant=False,
                                       **_REMAT_KW[cfg.remat_policy])
                 else:
-                    x, a = _apply_sub(sp, s, cfg, x, positions, c, lengths,
-                                      active, serving, want_aux)
+                    x, a = _apply_sub(
+                        sp, s, cfg, x, positions, c,
+                        rwkv_lengths if s.kind == "rwkv" else lengths,
+                        active, serving, want_aux, col)
                 if a is not None:
                     aux = a if aux is None else aux + a
     return x, aux, caches
@@ -579,7 +671,14 @@ def loss_fn(params: Params, cfg: ModelConfig, inputs: dict,
 # --------------------------------------------------------------------------
 
 def _per_slot(caches: tuple) -> bool:
+    """Whether an attention cache keeps a position per row."""
     return any(c["pos"].dim() == 2 for c in caches if "pos" in c)
+
+
+def _fixed_pos(caches: tuple) -> bool:
+    """Whether an attention cache keeps one position for the whole batch
+    (RWKV caches have none: a row of theirs serves either loop)."""
+    return any(c["pos"].dim() == 1 for c in caches if "pos" in c)
 
 
 def _host_rows(mask, B: int) -> torch.Tensor:
@@ -598,19 +697,19 @@ def decode_step(params: Params, cfg: ModelConfig, inputs: dict,
 
     ``active`` (per-slot caches only): (B,) host bools, the rows whose slot
     holds an in-flight request. The other rows compute (their logits mean
-    nothing) but write no K/V and keep their position: a free or a
-    prefilling slot is left bit-unchanged."""
+    nothing) but write no K/V or RWKV carries and keep their position: a
+    free or a prefilling slot is left bit-unchanged."""
     check_supported(cfg)
     B = inputs["tokens"].shape[0]
     if active is not None:
-        if not _per_slot(caches):
+        if _fixed_pos(caches):
             raise ValueError("active rows need per-slot caches "
                              "(init_cache(per_slot=True))")
         active = _host_rows(active, B)
     x, _ = embed_inputs(params, cfg, inputs)
     x, _, caches = _run_stack(params["layers"], cfg.pattern, cfg, x, None,
                               caches, active=active)
-    if _per_slot(caches):
+    if active is not None or _per_slot(caches):
         x = L.serve_rmsnorm(params["final_norm"], x)
         logits = unembed(params, cfg, x, L.serve_matmul)[:, -1]
     else:
@@ -621,7 +720,8 @@ def decode_step(params: Params, cfg: ModelConfig, inputs: dict,
 
 def advance_pos(caches: tuple, active=None) -> tuple:
     """Increment every attention cache's position by one: everywhere, or
-    (per-slot caches) on the rows where ``active`` is True."""
+    (per-slot caches) on the rows where ``active`` is True. RWKV caches
+    have no position."""
     step = 1 if active is None else torch.as_tensor(active).to(torch.int32)
     return tuple({**c, "pos": c["pos"] + step} if "pos" in c else c
                  for c in caches)
@@ -650,38 +750,58 @@ def prefill_call_bound(cfg: ModelConfig, max_len: int) -> int:
 def supports_slot_serving(cfg: ModelConfig) -> bool:
     """Whether the continuous-batching engine can drive this architecture:
     the reference's rule, any decoder-only token-prompt stack. (Building
-    one whose kinds this slice does not port still raises
+    one whose kinds this slice does not port, ``mamba``, still raises
     ``NotImplementedError``.)"""
     kinds = {s.kind for layer in cfg.pattern for s in layer}
     return (cfg.input_mode == "tokens" and not cfg.n_enc_layers
             and kinds <= {"attn", "mlp", "moe", "mamba", "rwkv"})
 
 
+def _zero_rows(caches: tuple, rows: torch.Tensor) -> None:
+    """Zero the batch rows ``rows`` (host integers) of every leaf but
+    ``pos``, in place, one ``index_fill_`` per leaf."""
+    for c in caches:
+        leaves = [leaf for name, leaf in c.items() if name != "pos"]
+        idx = host_to(rows, leaves[0].device)
+        for leaf in leaves:
+            leaf.index_fill_(1, idx, 0)
+
+
 def reset_cache_slots(caches: tuple, free_mask) -> tuple:
-    """Free the cache rows where ``free_mask`` (B,) is True: their K/V and
-    scales are zeroed in place, one ``index_fill_`` per leaf, and their
-    positions set to 0 (which alone hides the old K/V from every later
-    read; the zeros keep no request's data in a free slot)."""
-    first = next(c for c in caches if "pos" in c)
-    free = _host_rows(free_mask, first["pos"].shape[-1])
+    """Free the cache rows where ``free_mask`` (B,) is True: their K/V,
+    scales and RWKV carries are zeroed in place and their positions set to
+    0 (which alone hides the old K/V from every later read; the zeros keep
+    no request's data in a free slot, and are an RWKV row's fresh state)."""
+    batch = next(v for c in caches for k, v in c.items() if k != "pos")
+    free = _host_rows(free_mask, batch.shape[1])
     rows = torch.nonzero(free).flatten()
     if not len(rows):
         return caches
+    _zero_rows(caches, rows)
+    return tuple({**c, "pos": torch.where(free[None], 0, c["pos"])}
+                 if "pos" in c else c for c in caches)
+
+
+def splice_row_pos(caches: tuple, rows: tuple, slot: int) -> tuple:
+    """``caches`` with slot ``slot``'s positions taken from the batch-of-1
+    ``rows`` (:func:`cache_row` views, written already: K/V and RWKV
+    carries need no copy, and an RWKV cache has no position)."""
     out = []
-    for c in caches:
-        idx = host_to(rows, c["k"].device)
-        for name, leaf in c.items():
-            if name != "pos":
-                leaf.index_fill_(1, idx, 0)
-        out.append({**c, "pos": torch.where(free[None], 0, c["pos"])})
+    for c, r in zip(caches, rows):
+        if "pos" not in c:
+            out.append(c)
+            continue
+        pos = c["pos"].clone()
+        pos[:, slot] = r["pos"][:, 0]
+        out.append({**c, "pos": pos})
     return tuple(out)
 
 
 def cache_row(caches: tuple, slot: int) -> tuple:
     """One slot's row of per-slot caches as batch-of-1 VIEWS, positions
-    included: what a call writes into the row lands in the caches, so a
-    prefill chunk needs no splice (the prefix cache's copies are
-    :func:`extract_cache_row` and :func:`adopt_prefix`)."""
+    included: what a call writes into the row (K/V, RWKV carries) lands in
+    the caches, so a prefill chunk needs no splice (the prefix cache's
+    copies are :func:`extract_cache_row` and :func:`adopt_prefix`)."""
     return tuple({k: v[:, slot:slot + 1] for k, v in c.items()}
                  for c in caches)
 
@@ -696,19 +816,23 @@ def prefill_step(params: Params, cfg: ModelConfig, inputs: dict,
     integers, the chunks' true lengths (<= Tc); active: (B,) host bools,
     the rows admitted by this call (default all). With ``resume=False`` an
     active row restarts at position 0 (its ring slots ``0..len-1`` take the
-    chunk's K/V; position arithmetic hides the rest); with ``resume=True``
-    (chunks 2..n of a long prompt) it continues at its position. Inactive
+    chunk's K/V; position arithmetic hides the rest) and its RWKV carries
+    are zeroed; with ``resume=True`` (chunks 2..n of a long prompt) it
+    continues at its position and from its carries, which the chunk's pads
+    leave unchanged and which are taken at its last real token. Inactive
     rows are not written and keep their positions. Returns (logits (B, V)
     f32 at each row's last real token, caches with the active rows'
-    positions advanced by ``lengths``); the rings are written in place."""
+    positions advanced by ``lengths``); the caches are written in place."""
     check_supported(cfg)
     B = inputs["tokens"].shape[0]
     lengths = torch.as_tensor(lengths).to("cpu", torch.int64).reshape(-1)
     act = torch.ones(B, dtype=torch.bool) if active is None \
         else _host_rows(active, B)
     if not resume:
+        _zero_rows(tuple(c for c in caches if "pos" not in c),
+                   torch.nonzero(act).flatten())
         caches = tuple({**c, "pos": torch.where(act[None], 0, c["pos"])}
-                       for c in caches)
+                       if "pos" in c else c for c in caches)
     x, _ = embed_inputs(params, cfg, inputs)
     x, _, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, None,
                          caches, lengths=lengths, active=act)
@@ -718,7 +842,8 @@ def prefill_step(params: Params, cfg: ModelConfig, inputs: dict,
     logits = unembed(params, cfg, last, L.serve_matmul)[:, 0].to(
         torch.float32)
     grow = (lengths * act).to(torch.int32)
-    return logits, tuple({**c, "pos": c["pos"] + grow} for c in caches)
+    return logits, tuple({**c, "pos": c["pos"] + grow} if "pos" in c else c
+                         for c in caches)
 
 
 def extract_cache_row(caches: tuple, slot: int, length: int | None = None
@@ -733,9 +858,12 @@ def extract_cache_row(caches: tuple, slot: int, length: int | None = None
     ``min(p, S)`` slots of each leaf are copied; on a wrapped ring (``p >
     S``), and with no ``length``, the whole ring is. :func:`adopt_prefix`
     writes the zeros back, so a trimmed row adopts to the same bytes as a
-    whole one."""
+    whole one. An RWKV row (its carries and state) is copied whole."""
     out = []
     for c in caches:
+        if "pos" not in c:
+            out.append({k: v[:, slot:slot + 1].clone() for k, v in c.items()})
+            continue
         S = c["k"].shape[2]
         m = S if length is None else min(int(length), S)
         row = {k: v[:, slot:slot + 1, :m].clone() for k, v in c.items()
@@ -752,6 +880,11 @@ def adopt_prefix(caches: tuple, row: tuple, slot: int) -> tuple:
     positions."""
     out = []
     for c, r in zip(caches, row):
+        if "pos" not in c:
+            for name, leaf in c.items():
+                leaf[:, slot].copy_(r[name][:, 0])
+            out.append(c)
+            continue
         for name, leaf in c.items():
             if name == "pos":
                 continue
@@ -772,9 +905,9 @@ def adopt_prefix(caches: tuple, row: tuple, slot: int) -> tuple:
 def supports_speculation(cfg: ModelConfig) -> bool:
     """Whether the speculative verify step can drive this architecture: the
     reference's rule, slot serving plus a rollback rule for every cached
-    sublayer kind (attention rings roll back their rejected writes; the
-    reference's mamba and rwkv keep per-token checkpoints, which come with
-    queue 1's item 3)."""
+    sublayer kind (attention rings roll back their rejected writes; RWKV
+    keeps a checkpoint per token and commits the accepted one, as the
+    reference's mamba will, with queue 1's item 3)."""
     return (supports_slot_serving(cfg)
             and set(cache_layer_kinds(cfg)) <= {"attn", "mamba", "rwkv"})
 
@@ -789,14 +922,28 @@ def _ring_index(rows: torch.Tensor, slots: torch.Tensor, device) -> tuple:
     return tuple(idx.unbind(0))
 
 
-def save_ring_slots(caches: tuple, n) -> tuple:
+def save_ring_slots(caches: tuple, n, carries: bool = True) -> tuple:
     """Before a call that writes ``n[b]`` tokens of row ``b`` from its
     position (host integers, ``0`` for a row that writes nothing): the
     pre-call bytes of every ring slot it will write, from every leaf over
     all periods at once (one gather per leaf), with the pre-call
-    positions. :func:`restore_ring_slots` writes them back."""
+    positions. An RWKV cache, which has no ring, saves the whole rows with
+    ``n[b] > 0`` (one gather per leaf), or nothing (None) without
+    ``carries``: a verify call writes none of them and commits its own
+    checkpoints (:func:`commit_verify_caches`).
+    :func:`restore_ring_slots` writes them back."""
+    n = torch.as_tensor(n).to("cpu", torch.int64).reshape(-1)
     saved = []
     for c in caches:
+        if "pos" not in c:
+            rows = torch.nonzero(n > 0).flatten()
+            if not carries or not len(rows):
+                saved.append(None)
+                continue
+            idx = host_to(rows, c["state"].device)
+            saved.append({"rows": rows, "carries": {
+                k: v.index_select(1, idx) for k, v in c.items()}})
+            continue
         rows, ts, slots = L.ring_written_slots(c["pos"], c["k"].shape[2], n)
         vals = {}
         if len(rows):
@@ -812,10 +959,23 @@ def restore_ring_slots(caches: tuple, saved: tuple, keep) -> tuple:
     integers): the slots that tokens ``t >= keep[b]`` wrote get their saved
     bytes back, in place (nothing is written when every row keeps all its
     tokens), and the positions become the saved ones plus ``keep``.
-    ``keep`` of zeros undoes the call."""
+    ``keep`` of zeros undoes the call. An RWKV cache's saved rows come back
+    whole where ``keep`` is 0 (carries cannot keep a part of a call); its
+    other rows, and an RWKV cache that saved nothing, pass through."""
     keep = torch.as_tensor(keep).to("cpu", torch.int64).reshape(-1)
     out = []
     for c, sv in zip(caches, saved):
+        if "pos" not in c:
+            back = None if sv is None or "carries" not in sv \
+                else keep[sv["rows"]] == 0
+            if back is not None and bool(back.any()):
+                dev = c["state"].device
+                rows = host_to(sv["rows"][back], dev)
+                sel = host_to(torch.nonzero(back).flatten(), dev)
+                for name, vals in sv["carries"].items():
+                    c[name].index_copy_(1, rows, vals.index_select(1, sel))
+            out.append(c)
+            continue
         back = sv["ts"] >= keep[sv["rows"]]
         if bool(back.any()):
             dev = c["k"].device
@@ -838,9 +998,12 @@ def verify_forward(params: Params, cfg: ModelConfig, inputs: dict,
     a pad write would wrap over live K/V the real columns read).
     ``active`` (B,) host bools (default all): an inactive row writes
     nothing. The real columns' K/V is written into the rings in place and
-    the positions are not advanced. Returns (logits (B, T, V) f32, where
-    position ``t`` scores the next token after input token ``t``, and
-    ``old``, :func:`save_ring_slots` of the slots the call wrote), which
+    the positions are not advanced; the RWKV caches are not written (the
+    pad columns' checkpoints repeat the last real one's). Returns (logits
+    (B, T, V) f32, where position ``t`` scores the next token after input
+    token ``t``, and ``old``: per cache, :func:`save_ring_slots` of the
+    slots the call wrote, or ``{"steps": {leaf: (n_periods, B, T, ...)}}``,
+    an RWKV cache's per-token checkpoints, stacked), which
     :func:`commit_verify_caches` needs to keep only the accepted tokens."""
     check_supported(cfg)
     B, T = inputs["tokens"].shape
@@ -848,11 +1011,15 @@ def verify_forward(params: Params, cfg: ModelConfig, inputs: dict,
         else _host_rows(active, B)
     n = torch.full((B,), T, dtype=torch.int64) if lengths is None \
         else torch.as_tensor(lengths).to("cpu", torch.int64).reshape(-1)
-    old = save_ring_slots(caches, n * act)
+    old = save_ring_slots(caches, n * act, carries=False)
+    steps: dict = {}
     x, _ = embed_inputs(params, cfg, inputs)
     x, _, _ = _run_stack(params["layers"], cfg.pattern, cfg, x, None,
-                         caches, lengths=n, active=act)
+                         caches, lengths=n, active=act, collect=steps)
     x = L.serve_rmsnorm(params["final_norm"], x)
+    old = tuple(sv if ci not in steps else {"steps": {
+        name: torch.stack([p[name] for p in steps[ci]])
+        for name in steps[ci][0]}} for ci, sv in enumerate(old))
     return unembed(params, cfg, x, L.serve_matmul).to(torch.float32), old
 
 
@@ -863,11 +1030,23 @@ def commit_verify_caches(raw_caches: tuple, old: tuple, accept,
     ``accept`` (B,) host integers in ``[1, T]``: how many of the call's
     input tokens each row keeps. The ring slots written by rejected tokens
     get their pre-call bytes back, in place, and the positions advance by
-    ``accept`` only; an inactive row keeps its position (it wrote
+    ``accept`` only; an RWKV cache takes, in place, each row's checkpoint
+    after its token ``accept - 1`` (the state the sequential decode would
+    hold). An inactive row keeps its position and its carries (it wrote
     nothing)."""
     keep = torch.as_tensor(accept).to("cpu", torch.int64).reshape(-1)
     if active is not None:
         keep = keep * _host_rows(active, len(keep))
+    rows = torch.nonzero(keep > 0).flatten()
+    idx = None
+    for c, sv in zip(raw_caches, old):
+        if "pos" in c or not len(rows):
+            continue
+        if idx is None:       # (row, its accepted token's index), one copy
+            idx = host_to(torch.stack([rows, keep[rows] - 1]),
+                          c["state"].device)
+        for name, leaf in c.items():      # one gather a leaf, all periods
+            leaf.index_copy_(1, idx[0], sv["steps"][name][:, idx[0], idx[1]])
     return restore_ring_slots(raw_caches, old, keep)
 
 

@@ -6,8 +6,10 @@ this module every admission re-prefills from token 0. The fix rides an
 invariant the serving stack already guarantees: a slot's cache row after
 prefilling tokens ``t[0:p]`` on the engine's prefill-chunk grid is a PURE
 function of those tokens and the grid — pads never leak into attention
-rings (pad writes are suppressed and ring validity derives from ``pos``),
-and chunk plans are a function of prompt length, never scheduling. So a
+rings (pad writes are suppressed and ring validity derives from ``pos``)
+or RWKV carries (pads leave the state unchanged and the carries are taken
+at the last real token), and chunk plans are a function of prompt length,
+never scheduling. So a
 row snapshotted at a chunk boundary
 (:func:`repro_torch.models.transformer.extract_cache_row`) can be copied
 into ANY later request's slot
@@ -47,7 +49,8 @@ class PrefixNode:
     """One cached boundary: the slot-cache row for tokens ``key``.
 
     ``row`` is the batch-of-1 cache row snapshotted by
-    ``extract_cache_row`` (attention K/V rings at ``pos == len(key)``). ``refs`` pins the node against
+    ``extract_cache_row`` (attention K/V rings at ``pos == len(key)``,
+    RWKV carries after ``len(key)`` tokens). ``refs`` pins the node against
     eviction while an adopting request is still prefilling; ``stamp`` is
     the LRU clock value of the last lookup hit or insert.
     """

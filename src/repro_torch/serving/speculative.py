@@ -231,10 +231,11 @@ class DraftModelDrafter(Drafter):
     caches hold ONLY committed (prompt + emitted) tokens. ``propose`` first
     catches the slot up on tokens emitted since the last call, saves the
     ring slots the k draft steps will write
-    (:func:`repro_torch.models.transformer.save_ring_slots`), greedily
-    decodes up to ``k`` draft steps, then writes the saved bytes back and
-    rewinds the slot's position: rejected drafts leave no trace, and
-    accepted ones are fed again as the next catch-up.
+    (:func:`repro_torch.models.transformer.save_ring_slots`; a recurrent
+    sublayer's whole row), greedily decodes up to ``k`` draft steps, then
+    writes the saved bytes back and rewinds the slot's position: rejected
+    drafts leave no trace, and accepted ones are fed again as the next
+    catch-up.
     """
 
     def __init__(self, cfg, params, pcfg=None, *, n_slots: int,

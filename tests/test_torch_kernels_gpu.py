@@ -5,7 +5,10 @@ same device on the same inputs (made by numpy from a seed). The flash
 attention kernel is held within a tolerance instead
 (``flash_attention.flash_errors``): its products accumulate in another
 order and its 128-key tiles (bf16; 64 in f32) round ``p`` to bf16 against
-another running max than the plain version's 512-key tiles. The seeded
+another running max than the plain version's 512-key tiles; so are
+``ring_attention`` and the WKV recurrence (``wkv.wkv_errors``: fused
+multiply-adds and another order of the sums over k), each of which gives
+a token the same bits in any call, bitwise. The seeded
 weights are held between the card and the CPU. The file imports
 no JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
@@ -20,7 +23,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import (block_combine, flash_attention, quantize,
-                                 ref, ring_attention)
+                                 ref, ring_attention, wkv)
 from repro_torch.launch import step_fns
 
 pytestmark = pytest.mark.gpu
@@ -722,6 +725,22 @@ def test_expert_products_give_a_row_the_same_bits_in_any_call(cuda):
     assert bool(torch.isfinite(outs[512]).all())
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_serve_rmsnorm_is_rmsnorm_in_calls_of_serve_rows(dt, cuda):
+    """The slot paths' norm, its mean of squares through ``serve_rows`` and
+    the rest over every row at once, gives each row the bits of ``rmsnorm``
+    over calls of ``SERVE_ROWS`` rows, at 8, 40, 700 and 1024 rows of 4096
+    (a decode tick, a verify call and prefill chunks)."""
+    from repro_torch.models import layers
+    g = torch.Generator(device=cuda).manual_seed(23)
+    p = {"scale": torch.rand(4096, generator=g, device=cuda) + 0.5}
+    for M in (8, 40, 700, 1024):
+        x = (torch.randn((1, M, 4096), generator=g, device=cuda)
+             * 3).to(DTYPES[dt])
+        want = layers.serve_rows(lambda r: layers.rmsnorm(p, r), x)
+        _assert_bitwise(layers.serve_rmsnorm(p, x), want)
+
+
 def test_moe_slot_steps_give_a_token_the_same_bits_in_any_call(cuda):
     """Reduced Mixtral-8x22B with the int8 cache at full capacity: five
     tokens through one verify call and through five decode ticks leave
@@ -1029,3 +1048,154 @@ def test_nan_scale_slot_gives_nonfinite_logits_through_the_kernels(cuda):
     assert ring_attention.ring_attention.launches - before == cfg.n_layers
     assert bool(torch.isfinite(logits[0]).all())
     assert not bool(torch.isfinite(logits[1]).any())
+
+
+# ------------------------------------------------------------ wkv6
+
+def _wkv_case(rng, B, T, H, K, dt, device, masked=False):
+    """r, k, v in ``dt``, w_log, u, a nonzero state (f32) and a (B, T)
+    valid mask (every token valid unless ``masked``)."""
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, T, H, K)).astype(
+        np.float32) * 0.5).to(DTYPES[dt]).to(device) for _ in range(3))
+    w_log = torch.from_numpy(np.clip(
+        -np.exp(rng.standard_normal((B, T, H, K)) - 2.0), -8,
+        -1e-4).astype(np.float32)).to(device)
+    u = torch.from_numpy((rng.standard_normal((H, K)) * 0.3).astype(
+        np.float32)).to(device)
+    S = torch.from_numpy((rng.standard_normal((B, H, K, K)) * 0.3).astype(
+        np.float32)).to(device)
+    valid = torch.from_numpy(rng.random((B, T)) < (0.8 if masked else 2.0))
+    return r, k, v, w_log, u, S, valid.to(device)
+
+
+@pytest.mark.parametrize("collect", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T", [1, 5, 1024])
+@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_wkv6_matches_plain(dt, K, T, masked, collect, cuda):
+    rng = np.random.default_rng(K * 7 + T)
+    r, k, v, w, u, S, valid = _wkv_case(rng, 3, T, 4, K, dt, cuda, masked)
+    m = valid if masked else None
+    before = wkv.wkv6.launches
+    o, st = wkv.wkv6(r, k, v, w, u, S, m, collect)
+    assert wkv.wkv6.launches == before + 1
+    assert o.dtype == r.dtype and st.dtype == torch.float32
+    assert st.shape == ((3, T, 4, K, K) if collect else (3, 4, K, K))
+    e_o, e_s = wkv.wkv_errors((o, st), r, k, v, w, u, S, m, collect)
+    assert e_o <= wkv.WKV_TOL[r.dtype] and e_s <= wkv.WKV_STATE_TOL, \
+        (e_o, e_s)
+    if collect and masked:
+        # a pad leaves the state bit-unchanged
+        prev = torch.cat([S[:, None], st[:, :-1]], 1)
+        _assert_bitwise(st[~valid], prev[~valid])
+
+
+def test_wkv6_gives_a_token_the_same_bits_in_any_call(cuda):
+    """RWKV-6 7B's 64 heads of 64 over 4 rows of 40 tokens (row 0 all
+    valid, the others masked at random): the call of 40, calls of 5 and of
+    1 token threading the state, row 0 alone, row 0 beside other rows'
+    other masks, and the collecting call give each token's output and
+    state bitwise the same."""
+    rng = np.random.default_rng(11)
+    for dt in ("bf16", "f32"):
+        r, k, v, w, u, S, valid = _wkv_case(rng, 4, 40, 64, 64, dt, cuda,
+                                            masked=True)
+        valid[0] = True
+        o, st = wkv.wkv6(r, k, v, w, u, S, valid)
+        oc, states = wkv.wkv6(r, k, v, w, u, S, valid, collect=True)
+        _assert_bitwise(oc, o)
+        _assert_bitwise(states[:, -1], st)
+        for n in (1, 5):
+            state, outs = S, []
+            for t0 in range(0, 40, n):
+                sl = slice(t0, t0 + n)
+                part, state = wkv.wkv6(
+                    r[:, sl].contiguous(), k[:, sl].contiguous(),
+                    v[:, sl].contiguous(), w[:, sl].contiguous(), u, state,
+                    valid[:, sl].contiguous())
+                outs.append(part)
+                _assert_bitwise(state, states[:, t0 + n - 1])
+            _assert_bitwise(torch.cat(outs, 1), o)
+        alone = wkv.wkv6(r[:1], k[:1], v[:1], w[:1], u, S[:1].contiguous())
+        _assert_bitwise(alone[0], o[:1])
+        _assert_bitwise(alone[1], st[:1])
+        other = valid.clone()
+        other[1:] = ~other[1:]
+        moved = wkv.wkv6(r, k, v, w, u, S, other)
+        _assert_bitwise(moved[0][0], o[0])
+        _assert_bitwise(moved[1][0], st[0])
+
+
+def test_wkv6_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(12)
+    r, k, v, w, u, S, valid = _wkv_case(rng, 2, 5, 4, 64, "bf16", cuda)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        wkv.wkv6(r.half(), k.half(), v.half(), w, u, S)
+    with pytest.raises(TypeError, match="w_log, u and state"):
+        wkv.wkv6(r, k, v, w.bfloat16(), u, S)
+    with pytest.raises(ValueError, match="one shape"):
+        wkv.wkv6(r, k, v[:, :4], w, u, S)
+    with pytest.raises(ValueError, match="one cpu or cuda"):
+        wkv.wkv6(r, k, v, w, u.cpu(), S)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv.wkv6(r.transpose(0, 1).contiguous().transpose(0, 1), k, v, w,
+                 u, S)
+    r48, k48, v48, w48, u48, S48, _ = _wkv_case(rng, 2, 5, 4, 48, "bf16",
+                                                cuda)
+    with pytest.raises(ValueError, match="K in"):
+        wkv.wkv6(r48, k48, v48, w48, u48, S48)
+    before = wkv.wkv6.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv.wkv6(r.float().requires_grad_(), k.float(), v.float(), w, u, S)
+    assert wkv.wkv6.launches == before
+    with torch.no_grad():
+        wkv.wkv6(r.float().requires_grad_(), k.float(), v.float(), w, u, S)
+    assert wkv.wkv6.launches == before + 1
+
+
+def test_rwkv_slot_steps_give_a_token_the_same_bits_in_any_call(cuda):
+    """Reduced RWKV-6 7B (head_dim 16) on the card: five tokens through one
+    verify call and through five decode ticks leave the same carries and
+    logits, and a prompt prefilled in chunks of 16 leaves the carries of
+    the same prompt in one call, through the engine's prefill step."""
+    from repro_torch.configs.base import decode_config, get_config
+    from repro_torch.models import transformer as tf
+    cfg = decode_config(get_config("rwkv6_7b", reduced=True))
+    params = tf.init_params(cfg, 0, cuda)
+    prefill = step_fns.make_prefill_step(cfg)
+    rng = np.random.default_rng(5)
+    caches = tf.init_cache(cfg, 4, 96, device=cuda, per_slot=True)
+    prompts = [rng.integers(1, cfg.vocab_size, 20 + 7 * s) for s in range(4)]
+    for slot in range(4):
+        caches = _prefill_all(prefill, params, caches, slot, prompts[slot],
+                              cuda)
+    whole = tf.init_cache(cfg, 4, 96, device=cuda, per_slot=True)
+    for slot in range(4):
+        whole = _prefill_all(prefill, params, whole, slot, prompts[slot],
+                             cuda, chunk=64)
+    names = ("shift1", "shift2", "state")
+    for a, b in zip(caches, whole):
+        for n in names:
+            _assert_bitwise(a[n], b[n])
+    seq = torch.from_numpy(rng.integers(1, cfg.vocab_size, (4, 5))).to(cuda)
+    clone = lambda cs: tuple({n: t.clone() for n, t in c.items()}  # noqa
+                             for c in cs)
+    before = wkv.wkv6.launches
+    with torch.no_grad():
+        dec, logits = clone(caches), []
+        for t in range(5):
+            lg, dec = tf.decode_step(params, cfg, {"tokens": seq[:, t:t + 1]},
+                                     dec, active=np.ones(4, bool))
+            logits.append(lg)
+        ver = clone(caches)
+        vl, old = tf.verify_forward(params, cfg, {"tokens": seq}, ver,
+                                    lengths=[5] * 4,
+                                    active=np.ones(4, bool))
+        ver = tf.commit_verify_caches(ver, old, [5] * 4, np.ones(4, bool))
+    assert wkv.wkv6.launches - before == 6 * cfg.n_layers
+    for t in range(5):
+        _assert_bitwise(logits[t], vl[:, t])
+    for a, b in zip(dec, ver):
+        for n in names:
+            _assert_bitwise(a[n], b[n])
