@@ -4167,29 +4167,42 @@ def rwkv_long(cfg, params, dev) -> dict:
     return out
 
 
+def wkv_shapes() -> dict:
+    """``wkv6``'s calls on phase 13's main path, (B, T, collect): 13b's
+    decode tick, 13a's step, 13b's verify call and a prefill chunk."""
+    return {"decode": (RWKV_SERVE["slots"], 1, False),
+            "decode_13a": (RWKV_DECODE["batch"], 1, False),
+            "verify": (RWKV_SERVE["slots"], RWKV_SERVE["draft_k"] + 1, True),
+            "chunk": (1, RWKV_SERVE["prefill_chunk"], False)}
+
+
+def wkv_inputs(gen, B, T, H, K, collect, dev) -> tuple:
+    """``wkv6``'s arguments at one shape, drawn on the card: bf16 r, k, v,
+    the model's range of w_log, a nonzero state, every token valid."""
+    r, k, v = (torch.randn((B, T, H, K), generator=gen, device=dev)
+               .mul(0.5).to(torch.bfloat16) for _ in range(3))
+    w_log = -torch.exp(torch.randn((B, T, H, K), generator=gen,
+                                   device=dev) - 6.0)
+    w_log = w_log.clamp(-8.0, -1e-4)
+    u = torch.randn((H, K), generator=gen, device=dev) * 0.3
+    S = torch.randn((B, H, K, K), generator=gen, device=dev) * 0.3
+    valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    return r, k, v, w_log, u, S, valid, collect
+
+
 def wkv_timings(dev, cfg) -> dict:
     """The kernel at the main path's shapes (13a's step, 13b's decode tick,
     its verify call and a 1024-token chunk, RWKV-6 7B's 64 heads of 64):
-    against its plain version on the same inputs, timed (CUDA events)
-    beside its bound and the plain version's time."""
+    against its plain version on the same inputs, timed (CUDA events; at
+    the ticks also the profiler's device time a launch) beside its bound,
+    the plain version's time and the wrapper's host cost a call; fails if
+    ptxas spilled a register of any instantiation."""
     H, K = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
     gen = torch.Generator(device=dev).manual_seed(24)
-    shapes = {"decode": (RWKV_SERVE["slots"], 1, False),
-              "decode_13a": (RWKV_DECODE["batch"], 1, False),
-              "verify": (RWKV_SERVE["slots"], RWKV_SERVE["draft_k"] + 1,
-                         True),
-              "chunk": (1, RWKV_SERVE["prefill_chunk"], False)}
     out = {}
-    for what, (B, T, collect) in shapes.items():
-        r, k, v = (torch.randn((B, T, H, K), generator=gen, device=dev)
-                   .mul(0.5).to(torch.bfloat16) for _ in range(3))
-        w_log = -torch.exp(torch.randn((B, T, H, K), generator=gen,
-                                       device=dev) - 6.0)
-        w_log = w_log.clamp(-8.0, -1e-4)
-        u = torch.randn((H, K), generator=gen, device=dev) * 0.3
-        S = torch.randn((B, H, K, K), generator=gen, device=dev) * 0.3
-        valid = torch.ones((B, T), dtype=torch.bool, device=dev)
-        args = (r, k, v, w_log, u, S, valid, collect)
+    for what, (B, T, collect) in wkv_shapes().items():
+        args = wkv_inputs(gen, B, T, H, K, collect, dev)
+        r = args[0]
         got = wkv.wkv6(*args)
         want = ref.wkv6_recurrent_ref(*args)
         e_o, e_s = wkv.wkv_errors(got, *args)
@@ -4199,6 +4212,10 @@ def wkv_timings(dev, cfg) -> dict:
         abs_err = max(max_abs_err(got[0], want[0]),
                       max_abs_err(got[1], want[1]))
         t_k = time_ms(lambda: wkv.wkv6(*args))
+        # a tick's back-to-back events read the host's launch cost: its
+        # device time a launch comes from the profiler
+        dev_ms = device_ms(lambda: wkv.wkv6(*args)) if T == 1 else None
+        host = host_ms(lambda: wkv.wkv6(*args))
         # the plain chunk is a Python loop of about 170 ms: one call a run
         t_p = time_ms(lambda: ref.wkv6_recurrent_ref(*args),
                       reps=1 if T > 8 else 20)
@@ -4206,26 +4223,37 @@ def wkv_timings(dev, cfg) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_OPS_PER_S * 1e3
         out[what] = {"shape": [B, T, H, K], "collect": collect, "ms": t_k,
+                     "device_ms": dev_ms, "host_ms": host,
+                     "plan": wkv.plan(B, T, H, K, 2)._asdict(),
                      "plain_ms": t_p, "library_ms": None,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations", "bytes": nbytes, "ops": nops,
                      "o_err": e_o, "state_err": e_s, "max_abs_err": abs_err}
         log(f"  wkv6 {what} {[B, T, H, K]}{' collect' if collect else ''}: "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-            f"{out[what]['bound_ms']:.5f} ms ({out[what]['bound_by']}); "
-            f"errors o {e_o:.2e}, state {e_s:.2e}")
-        del r, k, v, w_log, S, got, want
+            f"kernel {t_k:.4f} ms"
+            + (f" (device {dev_ms:.4f} ms a launch)" if dev_ms else "")
+            + f", wrapper's host cost {host * 1e3:.2f} us a call, plain "
+            f"{t_p:.4f} ms, bound {out[what]['bound_ms']:.5f} ms "
+            f"({out[what]['bound_by']}); errors o {e_o:.2e}, state "
+            f"{e_s:.2e}")
+        del r, args, got, want
+    ptxas = _build.ptxas_info("wkv6", "wkv6_kernel")
+    spilled = [ln for ln in ptxas if "0 bytes spill stores" not in ln
+               or "0 bytes spill loads" not in ln]
+    if spilled:
+        raise AssertionError(f"wkv6 spills registers: {spilled}")
     src, replaces = KERNEL_FILES["wkv6"]
     head = out["decode"]
+    # a tick's time is its device time a launch, as the int8 rows'
     return {"name": "wkv6", "route": "cuda", "source": src,
             "replaces": replaces, "launches": None,
             "max_abs_err": max(o["max_abs_err"] for o in out.values()),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["device_ms"], "events_ms": head["ms"],
+            "host_ms": head["host_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shape": head["shape"],
-            "ptxas": _build.ptxas_info("wkv6", "wkv6_kernel"),
-            "shapes": out}
+            "ptxas": ptxas, "shapes": out}
 
 
 def rwkv_phase(dev) -> dict:

@@ -10,21 +10,35 @@ TPU kernel: the reference runs this recurrence as a ``lax.scan`` over
 tokens (``repro/models/ssm.py``, ``wkv_recurrent``), which in PyTorch is a
 Python loop of some seven launches per token and layer. It has no
 backward: a call on the card whose inputs need a gradient raises.
-:func:`work` counts a call's bytes and operations for its bound.
+:func:`plan` is the kernel's launch (its column groups, threads, token
+tile and shared memory; the order of every sum is its ``rows``, K's alone),
+:func:`state_tiles` its threads' share of the state, and :func:`work` a
+call's bytes and operations for its bound.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["HEAD_DIMS", "WKV_TOL", "WKV_STATE_TOL", "wkv_errors", "wkv6",
-           "work"]
+__all__ = ["HEAD_DIMS", "ROWS", "WKV_TOL", "WKV_STATE_TOL", "Plan", "plan",
+           "state_tiles", "wkv_errors", "wkv6", "work"]
 
 HEAD_DIMS = (16, 64)     # the kernel's K (RWKV-6 7B reduced and full)
+# The state rows a thread owns and sums in order (csrc/wkv6.cu, rows_for):
+# with the quads of the bonus and its butterfly, what fixes the order of
+# every sum. K alone sets it.
+ROWS = {16: 2, 64: 4}
+MAX_TILE = 32            # tokens staged at a time, at most
+MAX_SMEM = 232448        # a block's shared memory on sm_90 (227 KB)
+# Column groups are cut until the grid has about one block per SM of the
+# H100's 132 (128 blocks at one row of 64 heads).
+MIN_BLOCKS = 128
 # The kernel against its plain version (:func:`wkv_errors`). Both compute in
 # f32 and differ in the order of each output's sum over k and in fused
 # multiply-adds: a few f32 units of the sum of its terms' magnitudes, which
@@ -37,7 +51,7 @@ WKV_STATE_TOL = 1e-5
 _FLOAT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "wkv6_forward": ([_I, _I] + [_P] * 9 + [_I] * 4 + [_P], _I),
+    "wkv6_forward": ([_I, _I] + [_P] * 9 + [_I] * 8 + [_P], _I),
     "wkv6_error_string": ([_I], ctypes.c_char_p),
 }
 _FNS: dict = {}
@@ -50,6 +64,79 @@ def _fn(name: str):
     return fn
 
 
+class Plan(NamedTuple):
+    """A launch of the kernel: ``rows`` by ``cols`` state elements an owner
+    thread holds (``rows``, K's alone, fixes every sum's order), ``group``
+    state columns a block owns (``K // group`` blocks a row and head),
+    ``owners`` and ``threads`` a block (the rest are helpers: copies, the
+    prepare and o's sum), ``tile`` tokens staged at a time, ``smem`` bytes
+    of dynamic shared memory and ``blocks`` in the grid."""
+    rows: int
+    cols: int
+    group: int
+    owners: int
+    threads: int
+    tile: int
+    smem: int
+    blocks: int
+
+
+def _smem(K: int, group: int, tile: int, itemsize: int, T: int) -> int:
+    """``csrc/wkv6.cu``'s ``layout``: 3 stages (fewer where T has fewer
+    tiles) of a tile's raw r, k, the group's v and w_log, and 2 buffers (1
+    for one tile) of w, a and valid and of the o partials (tile, K / rows,
+    group)."""
+    tiles = -(-T // tile)
+    raw = tile * ((2 * K + group) * itemsize + 4 * K)
+    work = (tile * 4 * K + 5 * tile + 15) // 16 * 16
+    part = tile * (K // ROWS[K]) * group * 4
+    return min(tiles, 3) * raw + min(tiles, 2) * (work + part)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, T: int, H: int, K: int, itemsize: int = 2,
+         group: int | None = None, tile: int | None = None) -> Plan:
+    """The launch of a call of B rows of T tokens, H heads of K, r/k/v of
+    ``itemsize`` bytes: the widest column group (K, or 32 for f32 r/k/v;
+    then halves down to 16) whose grid has :data:`MIN_BLOCKS` blocks;
+    owners of 16 columns where the group is 64, else of 4 (one row of 64
+    heads then still runs 4 owner warps an SM); helpers as many as the
+    owners where they own 4 columns, else one warp; the longest tile up
+    to ``min(T, 32)`` tokens whose shared memory fits (``group`` and
+    ``tile``, when given, replace the choice: ``tools/torch_wkv_ab.py
+    --plans``)."""
+    if K not in HEAD_DIMS:
+        raise ValueError(f"wkv6 takes K in {HEAD_DIMS}, got {K}")
+    rows = ROWS[K]
+    if group is None:
+        # f32 inputs stop at 32 columns: 16 columns of f32 v an owner
+        # would not fit its registers
+        group = 32 if K == 64 and itemsize == 4 else K
+        while group > 16 and B * H * (K // group) < MIN_BLOCKS:
+            group //= 2
+    cols = 16 if group == 64 else 4
+    owners = K // rows * (group // cols)
+    threads = owners + (owners if cols == 4 else 32)
+    if tile is None:
+        tile = max(1, min(T, MAX_TILE))
+        while tile > 1 and _smem(K, group, tile, itemsize, T) > MAX_SMEM:
+            tile -= 1
+    return Plan(rows, cols, group, owners, threads, tile,
+                _smem(K, group, tile, itemsize, T), B * H * (K // group))
+
+
+def state_tiles(p: Plan, K: int) -> list:
+    """The kernel's map from a block's owner threads to one head's state:
+    for each column group ``cg`` (block ``(b * H + h) * (K // p.group) +
+    cg``), owner and quad of its columns, the (first row, first column) of
+    the ``p.rows`` x 4 elements. Owner ``tid`` takes row group ``tid //
+    n`` and the column quads ``tid % n + n j``, ``n = group / cols``."""
+    n = p.group // p.cols
+    return [(tid // n * p.rows, cg * p.group + (tid % n + n * j) * 4)
+            for cg in range(K // p.group) for tid in range(p.owners)
+            for j in range(p.cols // 4)]
+
+
 def work(B: int, T: int, H: int, K: int, itemsize: int = 2,
          collect: bool = False) -> tuple:
     """(bytes, operations) of one call, for its bound: r, k, v read and o
@@ -57,8 +144,8 @@ def work(B: int, T: int, H: int, K: int, itemsize: int = 2,
     the state read once and written once (with ``collect``, every token's
     state written); the f32 operations the recurrence needs, 5 K^2 + 5 K
     per token and head: ``r . S`` 2 K^2, the update ``w * S + k v^T`` 3
-    K^2, and the bonus ``(sum_k r_k u_k k_k) v`` 5 K (the kernel does the
-    bonus in K^2 multiply-adds; the bound does not count them)."""
+    K^2, and the bonus ``(sum_k r_k u_k k_k) v`` 5 K, as the kernel does
+    it."""
     tokens = B * T * H * K
     state = B * H * K * K * 4
     nbytes = (4 * tokens * itemsize + 4 * tokens + 4 * H * K + B * T
@@ -139,7 +226,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     still computed). Returns (o (B, T, H, K) in r's dtype, the new state),
     or with ``collect`` (o, states (B, T, H, K, K)), entry t the state after
     token t. On the card K must be one of :data:`HEAD_DIMS` and the tensors
-    contiguous; the state is read, never written."""
+    contiguous, each starting on 16 bytes; the state is read, never
+    written; :func:`plan` gives the launch."""
     _check(r, k, v, w_log, u, state, valid)
     if r.device.type == "cpu":
         return ref.wkv6_recurrent_ref(r, k, v, w_log, u, state, valid,
@@ -161,16 +249,21 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not collect:
             new.copy_(state)
         return out, new
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("wkv6's tensors must start on 16 bytes (the kernel "
+                         "reads 16 bytes at a time)")
+    p = plan(B, T, H, K, r.element_size())
     f, dev = _fn("wkv6_forward"), r.device
     args = (_FLOAT_CODE[r.dtype], int(collect), r.data_ptr(), k.data_ptr(),
             v.data_ptr(), w_log.data_ptr(), u.data_ptr(), state.data_ptr(),
             None if valid is None else valid.data_ptr(), out.data_ptr(),
-            new.data_ptr(), B, T, H, K)
+            new.data_ptr(), B, T, H, K, p.group, p.tile, p.threads, p.smem)
+    # the raw stream handle, as block_combine's launches take it
     if dev.index == torch.cuda.current_device():
-        rc = f(*args, torch.cuda.current_stream(dev).cuda_stream)
+        rc = f(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     else:
         with torch.cuda.device(dev):
-            rc = f(*args, torch.cuda.current_stream(dev).cuda_stream)
+            rc = f(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         raise RuntimeError(f"wkv6 launch failed: CUDA error {rc} "
                            f"({_fn('wkv6_error_string')(rc).decode()})")

@@ -1070,7 +1070,7 @@ def _wkv_case(rng, B, T, H, K, dt, device, masked=False):
 
 @pytest.mark.parametrize("collect", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("T", [1, 5, 1024])
+@pytest.mark.parametrize("T", [1, 5, 33, 1024])
 @pytest.mark.parametrize("K", [16, 64])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_wkv6_matches_plain(dt, K, T, masked, collect, cuda):
@@ -1091,40 +1091,89 @@ def test_wkv6_matches_plain(dt, K, T, masked, collect, cuda):
         _assert_bitwise(st[~valid], prev[~valid])
 
 
-def test_wkv6_gives_a_token_the_same_bits_in_any_call(cuda):
-    """RWKV-6 7B's 64 heads of 64 over 4 rows of 40 tokens (row 0 all
-    valid, the others masked at random): the call of 40, calls of 5 and of
-    1 token threading the state, row 0 alone, row 0 beside other rows'
-    other masks, and the collecting call give each token's output and
-    state bitwise the same."""
-    rng = np.random.default_rng(11)
-    for dt in ("bf16", "f32"):
-        r, k, v, w, u, S, valid = _wkv_case(rng, 4, 40, 64, 64, dt, cuda,
-                                            masked=True)
-        valid[0] = True
-        o, st = wkv.wkv6(r, k, v, w, u, S, valid)
-        oc, states = wkv.wkv6(r, k, v, w, u, S, valid, collect=True)
-        _assert_bitwise(oc, o)
-        _assert_bitwise(states[:, -1], st)
-        for n in (1, 5):
-            state, outs = S, []
-            for t0 in range(0, 40, n):
-                sl = slice(t0, t0 + n)
-                part, state = wkv.wkv6(
-                    r[:, sl].contiguous(), k[:, sl].contiguous(),
-                    v[:, sl].contiguous(), w[:, sl].contiguous(), u, state,
-                    valid[:, sl].contiguous())
-                outs.append(part)
-                _assert_bitwise(state, states[:, t0 + n - 1])
-            _assert_bitwise(torch.cat(outs, 1), o)
-        alone = wkv.wkv6(r[:1], k[:1], v[:1], w[:1], u, S[:1].contiguous())
-        _assert_bitwise(alone[0], o[:1])
-        _assert_bitwise(alone[1], st[:1])
-        other = valid.clone()
-        other[1:] = ~other[1:]
-        moved = wkv.wkv6(r, k, v, w, u, S, other)
-        _assert_bitwise(moved[0][0], o[0])
-        _assert_bitwise(moved[1][0], st[0])
+@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_wkv6_gives_a_token_the_same_bits_in_any_call(dt, K, cuda,
+                                                       monkeypatch):
+    """A row of 1,024 tokens with pads inside the token tiles (H heads of
+    K: RWKV-6 7B's 64 of 64, the reduced 4 of 16): the call of all of it,
+    the collecting call, calls of 1, 5, 31, 32 and 33 tokens and of 1,000
+    then 24 threading the state, and the row beside 7 and 15 other rows
+    (B = 8, 16: another column grouping at K = 64 in bf16) and beside rows
+    with other masks, and the row under a plan forced to groups of 16
+    columns, give each token's output and state bitwise the same. Each
+    call's rows lie within ``WKV_TOL`` and ``WKV_STATE_TOL`` of the plain
+    version."""
+    H, T = (64 if K == 64 else 4), 1024
+    rng = np.random.default_rng(11 + K)
+    r, k, v, w, u, S, valid = _wkv_case(rng, 16, T, H, K, dt, cuda,
+                                        masked=True)
+    one = [x[:1] for x in (r, k, v, w)]
+    S1, m1 = S[:1], valid[:1]
+    plans = {B: wkv.plan(B, T, H, K, r.element_size()) for B in (1, 8, 16)}
+    assert len({p.rows for p in plans.values()}) == 1
+    if K == 64 and dt == "bf16":
+        assert plans[1].group != plans[16].group
+    o, st = wkv.wkv6(*one, u, S1, m1)
+    if K == 64:
+        forced = wkv.plan(1, T, H, K, r.element_size(), group=16)
+        assert forced.group != plans[1].group
+        with monkeypatch.context() as m:
+            m.setattr(wkv, "plan", lambda *a, **kw: forced)
+            by16 = wkv.wkv6(*one, u, S1, m1)
+        _assert_bitwise(by16[0], o)
+        _assert_bitwise(by16[1], st)
+    oc, states = wkv.wkv6(*one, u, S1, m1, collect=True)
+    _assert_bitwise(oc, o)
+    _assert_bitwise(states[:, -1], st)
+    e_o, e_s = wkv.wkv_errors((oc, states), *one, u, S1, m1, collect=True)
+    assert e_o <= wkv.WKV_TOL[r.dtype] and e_s <= wkv.WKV_STATE_TOL, \
+        (e_o, e_s)
+    cuts = {n: list(range(0, T, n)) for n in (1, 5, 31, 32, 33)}
+    cuts["1000+24"] = [0, 1000]
+    for n, starts in cuts.items():
+        state, outs = S1, []
+        for t0, t1 in zip(starts, starts[1:] + [T]):
+            part, state = wkv.wkv6(*(x[:, t0:t1].contiguous() for x in one),
+                                   u, state, m1[:, t0:t1].contiguous())
+            outs.append(part)
+            _assert_bitwise(state, states[:, t1 - 1])
+        _assert_bitwise(torch.cat(outs, 1), o)
+    rows = {}
+    for B in (8, 16):
+        rows[B] = wkv.wkv6(r[:B], k[:B], v[:B], w[:B], u, S[:B], valid[:B])
+        _assert_bitwise(rows[B][0][:1], o)
+        _assert_bitwise(rows[B][1][:1], st)
+    _assert_bitwise(rows[16][0][:8], rows[8][0])
+    _assert_bitwise(rows[16][1][:8], rows[8][1])
+    for b in range(16):
+        e_o, e_s = wkv.wkv_errors((rows[16][0][b:b + 1], rows[16][1][b:b + 1]),
+                                  r[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                  w[b:b + 1], u, S[b:b + 1], valid[b:b + 1])
+        assert e_o <= wkv.WKV_TOL[r.dtype] and e_s <= wkv.WKV_STATE_TOL, \
+            (b, e_o, e_s)
+    other = valid.clone()
+    other[1:] = ~other[1:]
+    moved = wkv.wkv6(r, k, v, w, u, S, other)
+    _assert_bitwise(moved[0][:1], o)
+    _assert_bitwise(moved[1][:1], st)
+
+
+def test_wkv6_builds_without_spills(cuda):
+    """ptxas spills no register of any instantiation, and each fits two
+    blocks of its threads on an SM's 65,536 registers."""
+    import re
+    from repro_torch.kernels import _build
+    _build.load("wkv6", wkv._SIGNATURES)
+    info = _build.ptxas_info("wkv6", "wkv6_kernel")
+    assert info
+    for line in info:
+        assert "0 bytes spill stores" in line and \
+            "0 bytes spill loads" in line, line
+        K, G = map(int, re.search(r"Li(\d+)ELi(\d+)E", line).groups())
+        threads = wkv.plan(1, 1, 64, K, group=G).threads
+        regs = int(re.search(r"Used (\d+) registers", line)[1])
+        assert 2 * threads * regs <= 65536, line
 
 
 def test_wkv6_refuses_what_it_does_not_take(cuda):
@@ -1141,6 +1190,9 @@ def test_wkv6_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         wkv.wkv6(r.transpose(0, 1).contiguous().transpose(0, 1), k, v, w,
                  u, S)
+    shifted = torch.empty(r.numel() + 4, dtype=r.dtype, device=cuda)[4:]
+    with pytest.raises(ValueError, match="16 bytes"):
+        wkv.wkv6(shifted.view(r.shape).copy_(r), k, v, w, u, S)
     r48, k48, v48, w48, u48, S48, _ = _wkv_case(rng, 2, 5, 4, 48, "bf16",
                                                 cuda)
     with pytest.raises(ValueError, match="K in"):

@@ -128,6 +128,44 @@ def test_recurrence_wrapper_refuses_bad_inputs():
                                                        + 5 * 64)
 
 
+@pytest.mark.parametrize("K", wkv.HEAD_DIMS)
+def test_kernel_plan_covers_the_state_once_in_an_order_fixed_by_k(K):
+    """``wkv.plan``, the kernel's launch, for B in 1..32, H 4 and 64, T at
+    and around a tile's 32 and a chunk's 1,024, bf16 and f32 inputs: its
+    blocks' threads own every element of a head's state exactly once
+    (``wkv.state_tiles``, the kernel's thread map), the rows a thread sums
+    in order (what fixes every sum's order) are K's alone, the owner and
+    helper threads are whole warps, the tile is at most T and 32 tokens and
+    the shared memory fits the card's 227 KB; the column grouping follows B
+    H, so one row of 64 heads still fills the card."""
+    seen_plans = set()
+    for H in (4, 64):
+        for B in range(1, 33):
+            for T in (1, 5, 31, 32, 33, 1024):
+                for itemsize in (2, 4):
+                    p = wkv.plan(B, T, H, K, itemsize)
+                    assert p.rows == wkv.ROWS[K]
+                    assert K % p.group == 0 and p.group >= 16
+                    assert p.owners == K // p.rows * p.group // p.cols
+                    assert p.owners % 32 == 0 and p.threads % 32 == 0
+                    assert 1 <= p.tile <= min(T, wkv.MAX_TILE)
+                    assert 0 < p.smem <= wkv.MAX_SMEM
+                    assert p.blocks == B * H * (K // p.group)
+                    seen_plans.add(p)
+    for p in seen_plans:
+        owned = np.zeros((K, K), np.int64)
+        for r0, c0 in wkv.state_tiles(p, K):
+            owned[r0:r0 + p.rows, c0:c0 + 4] += 1
+        assert (owned == 1).all(), p
+    if K == 64:
+        assert {p.group for p in seen_plans} == {16, 32, 64}
+        assert wkv.plan(1, 1024, 64, 64).blocks >= wkv.MIN_BLOCKS
+        assert wkv.plan(1, 1024, 64, 64).tile == wkv.MAX_TILE
+        assert wkv.plan(8, 1, 64, 64).group == 64
+    with pytest.raises(ValueError, match="K in"):
+        wkv.plan(1, 1, 4, 48)
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_wkv_errors_pass_the_plain_version_and_catch_wrong_ones(dt):
     """The kernel's check (``wkv.wkv_errors`` within ``WKV_TOL`` and
