@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
-(``--only 13`` or ``--only 4,9-11`` runs those phases alone, with the
+(``--only 14`` or ``--only 4,9-11`` runs those phases alone, with the
 phases they need; the default is every phase). It builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), then:
@@ -195,11 +195,39 @@ kernels from ``src/repro_torch/kernels/csrc`` (one
    each alone, 16 new tokens each: the same slot bytes; one decode tick and
    one chunk traced; the kernel timed at the decode tick's, the verify
    call's and the chunk's shapes beside its bound and its plain version;
-   each part's seconds.
+   each part's seconds;
+14. the Mamba mixer at full width: Jamba-v0.1 with every published width
+   (d_model 4096, 32 heads of 128 over 8 K/V heads, 16 experts of d_ff
+   14,336, top-2, vocabulary 65,536, untied embeddings; Mamba d_inner
+   8192, d_state 16, dt_rank 256, d_conv 4), depth cut to one period of 8
+   layers (7 Mamba, 1 attention, 4 MoE, 4 MLP; about 13.3 B parameters),
+   bf16 weights drawn on the card, the int8 K/V cache forced on, its
+   recurrence through the selective-scan kernel ``mamba_scan`` (which
+   replaces no TPU kernel: it stands where the reference's ``lax.scan``
+   does); (a) ``serve_loop`` at batch 16 for 32 steps, each row from its
+   own random token, one scan a Mamba layer and one ring attention, fused
+   write and two dequantizes an attention layer each step, then the same
+   steps with every kernel call held against its plain version on its own
+   inputs (``scan_held``: y and state within ``mamba_scan.SCAN_TOL`` and
+   ``SCAN_STATE_TOL``; ``kernels_held``) and with the plain scan, ring
+   attention and int8, routed alike, its tokens equal at a clear margin;
+   (b) ``ServingEngine`` at capacity factor 16 (8 slots, chunks of 1024;
+   16 requests a tick apart sharing a 2048-token prefix, prompts of 2560
+   to 4608 tokens, 8 to 16 new tokens): A plain, B with speculation
+   (drafts replaying A's streams with one token changed) and C with the
+   prefix cache, B's and C's streams and each request's Mamba carries at
+   its release bitwise A's; then a prefill chunk, a decode tick and a
+   verify call at the engine's shapes held call by call and against the
+   plain kernels; (c) a 32,768-token prompt in 32 chunks and a 512-token
+   one, each alone, 16 new tokens each: the same carry bytes, the ring
+   holding each prompt; one decode tick and one chunk traced; the scan
+   timed at the decode tick's, 14a's step's, the verify call's and the
+   chunk's shapes beside its bound and its plain version; each part's
+   seconds.
 
-In phases 3, 5, 7, 8, 9, 10, 11, 12 and 13 the kernels' launch counters are zeroed
-just before the main path and read just after, and must show that the
-kernels carried it.
+In phases 3, 5, 7, 8, 9, 10, 11, 12, 13 and 14 the kernels' launch
+counters are zeroed just before the main path and read just after, and
+must show that the kernels carried it.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
 raises before that line. Without a CUDA device it exits nonzero and prints
@@ -239,7 +267,7 @@ from repro_torch.data import threefry  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, block_combine, quantize, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import ring_attention, wkv  # noqa: E402
+from repro_torch.kernels import mamba_scan, ring_attention, wkv  # noqa: E402
 from repro_torch.launch import serve, step_fns, train  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.runtime.chaos import Fault, FaultPlan  # noqa: E402
@@ -289,6 +317,10 @@ KERNEL_FILES = {
     # wkv_recurrent does (ssm.py:112-152)
     "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
              "src/repro/models/ssm.py:112"),
+    # no TPU kernel: it stands where the reference's lax.scan of
+    # mamba_scan_recurrent does (ssm.py:390-424)
+    "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/models/ssm.py:390"),
 }
 WRAPPERS = {"combine2": block_combine.combine2,
             "combine3": block_combine.combine3,
@@ -299,7 +331,8 @@ WRAPPERS = {"combine2": block_combine.combine2,
             "dequantize_int8": quantize.dequantize_int8,
             "flash_attention": fa.flash_attention,
             "ring_attention": ring_attention.ring_attention,
-            "wkv6": wkv.wkv6}
+            "wkv6": wkv.wkv6,
+            "mamba_scan": mamba_scan.mamba_scan}
 # phase 5: MiniCPM-2B decode, cut from the reference's decode_32k cell
 # (batch 128, 32,768 cached tokens) to what one 80 GB card holds
 DECODE = dict(arch="minicpm_2b", batch=16, cache_len=8192, steps=32, seed=0)
@@ -387,7 +420,8 @@ RWKV_DECODE = dict(batch=16, steps=32, cache_len=1024, seed=21)
 # tokens; drafts of up to 4 tokens; a prefix trie of 16 nodes
 RWKV_SERVE = dict(slots=8, cache_len=1024, prefill_chunk=1024, requests=16,
                   gap=1, seed=22, shared_prefix=2048, prompt_lens=(512, 2560),
-                  max_new=(8, 16), draft_k=4, prefix_nodes=16)
+                  max_new=(8, 16), draft_k=4, prefix_nodes=16,
+                  repetitive=True)
 # 13b's check of the slot path against the plain recurrence: the slots
 # prefilled to these lengths, then row 0's next chunk, a decode tick and a
 # verify call over every slot
@@ -398,6 +432,37 @@ RWKV_SLOT_CHECK = dict(seed=25, lens=(1024, 700, 1000, 300, 64, 100, 7,
 RWKV_LONG = dict(prompt_len=32768, short_len=512, max_new=16, seed=23)
 # the layers of the traced prefill chunk
 RWKV_TRACE_LAYERS = 4
+# phase 14: Jamba-v0.1 with every published width (d_model 4096, 32 heads
+# of 128 over 8 K/V heads, 16 experts of d_ff 14,336 top-2, vocabulary
+# 65,536, untied embeddings; Mamba d_inner 8192, d_state 16, dt_rank 256,
+# d_conv 4), depth cut from 32 layers to one period of 8 (7 Mamba and 1
+# attention, 4 MoE and 4 MLP, each at its published place): about 13.3 B
+# parameters, 26.6 GB in bf16, where all 32 layers (51.6 B, 103 GB) exceed
+# the card's 80 GB. The int8 K/V cache is forced on (the dry run's rule
+# keeps it off at 8 * 128), so the attention layer runs the fused write
+# and the dequantize as phase 12 does.
+JAMBA = dict(arch="jamba_v0_1_52b", layers=8, seed=0)
+# 14a: phase 5's step shape (batch 16, 32 greedy steps), each row from its
+# own random first token
+JAMBA_DECODE = dict(batch=16, steps=32, cache_len=1024, seed=31)
+# 14b: 16 requests a tick apart into 8 slots, chunks of 1024; a shared
+# 2048-token prefix and a repetitive suffix of 512-2560 tokens (prompts of
+# 2560-4608), 8-16 new tokens; drafts of up to 4 tokens; a prefix trie of
+# 16 nodes; capacity factor n_experts (no slot dropped), so that streams
+# do not depend on a call's T
+JAMBA_SERVE = dict(slots=8, cache_len=4736, prefill_chunk=1024, requests=16,
+                   gap=1, seed=28, shared_prefix=2048,
+                   prompt_lens=(512, 2560), max_new=(8, 16), draft_k=4,
+                   prefix_nodes=16, repetitive=True)
+# 14b's check of the slot path against the plain kernels: the slots
+# prefilled to these lengths, then row 0's next chunk, a decode tick and a
+# verify call over every slot
+JAMBA_SLOT_CHECK = dict(seed=29, lens=(3072, 4600, 4097, 2500, 1024, 333,
+                                       64, 7))
+# 14c: one request of 32768 prompt tokens (32 chunks) and one of 512, 16
+# new tokens each, in slots of a 32,896-position ring
+JAMBA_LONG = dict(prompt_len=32768, short_len=512, max_new=16, seed=30,
+                  cache_len=32896)
 # phase 7: MiniCPM-2B training, cut from the reference's train_4k cell
 # (seq 4096, global batch 256) to the batch one 80 GB card holds
 TRAIN = dict(arch="minicpm_2b", seq_len=4096, global_batch=4, accum=1,
@@ -580,14 +645,17 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def device_breakdown(fn, top: int = 8, cpu: bool = True) -> dict:
+def device_breakdown(fn, top: int = 8, cpu: bool = True,
+                     match: str | None = None) -> dict:
     """One traced run under ``torch.profiler``: the device time of each
     kernel name, summed, the count of device operations (kernels, copies
     and fills) and the device's busy share of the traced wall time (its
     idle share is the rest). Kernels overlap nothing here (one
     stream), so the busy time is the sum over kernels. ``cpu=False``
     records the device's activity alone: a call of some 10,000 launches
-    then costs seconds of the profiler's processing, not tens."""
+    then costs seconds of the profiler's processing, not tens. ``match``
+    adds ``matched_ms``, the device time of every kernel whose name holds
+    it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -603,7 +671,9 @@ def device_breakdown(fn, top: int = 8, cpu: bool = True) -> dict:
         raise AssertionError("the profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    return {"traced_wall_ms": secs * 1e3, "device_busy_ms": busy_ms,
+    extra = {} if match is None else {
+        "matched_ms": sum(r[1] for r in rows if match in r[0])}
+    return {**extra, "traced_wall_ms": secs * 1e3, "device_busy_ms": busy_ms,
             "device_ops": sum(r[2] for r in rows),
             "device_idle_share": max(0.0, 1.0 - busy_ms / (secs * 1e3)),
             "top_kernels": [{"name": k[:90], "ms": ms, "count": c}
@@ -3431,15 +3501,18 @@ def kernels_held(worst: dict):
 
 def against_plain(run, *args, held: dict | None = None) -> tuple:
     """``run(*args[0])`` with the kernels, then ``run(*args[1])`` with the
-    plain ring attention and int8 (each call its own arguments, where a
-    call writes them), the second routed as the first (:class:`Routes`);
-    with ``held``, the first under :func:`kernels_held`. Returns (kernels'
-    result, plain result, routes)."""
+    plain ring attention, int8 and selective scan (each call its own
+    arguments, where a call writes them), the second routed as the first
+    (:class:`Routes`); with ``held``, the first under :func:`kernels_held`
+    and :func:`scan_held`. Returns (kernels' result, plain result,
+    routes)."""
     routes = Routes()
     with routes.record(), (kernels_held(held) if held is not None
-                           else contextlib.nullcontext()):
+                           else contextlib.nullcontext()), \
+            (scan_held(held) if held is not None
+             else contextlib.nullcontext()):
         got = run(*args[0])
-    with routes.replay(), plain_ring(), plain_int8():
+    with routes.replay(), plain_ring(), plain_int8(), plain_scan():
         want = run(*args[1])
     return got, want, routes
 
@@ -3873,10 +3946,7 @@ def rwkv_decode(dev, cfg, params) -> dict:
     torch.cuda.synchronize()
     launches = counters()
     peak = torch.cuda.max_memory_allocated()
-    if launches["wkv6"] != L * steps or any(
-            n for k, n in launches.items() if k != "wkv6"):
-        raise AssertionError(f"13a launches {launches}: want {L * steps} "
-                             "wkv6 and nothing else")
+    check_launches("13a", launches, path_want(cfg, steps))
     if run.logits.shape != (steps, B, cfg.vocab_size) or \
             not bool(torch.isfinite(run.logits).all()):
         raise AssertionError("13a logits not finite or of the wrong shape")
@@ -3937,15 +4007,17 @@ class ReplayDrafter(Drafter):
 
 @contextlib.contextmanager
 def released_carries(seen: dict, against: dict | None = None):
-    """While an engine runs, each request's cache row when it is released
-    (its carries after the prompt and all its tokens but the last): kept
-    in ``seen`` by request id, or, with ``against``, held bitwise to that
-    run's row (``seen`` gets True). Wraps ``EngineSession._release`` on the
-    class, as :func:`fleet_watch` wraps ``tick``."""
+    """While an engine runs, each request's recurrent carries when it is
+    released (after the prompt and all its tokens but the last; its cache
+    row's carry caches, not its attention rings, whose slots past its
+    position hold what the slot held before): kept in ``seen`` by request
+    id, or, with ``against``, held bitwise to that run's (``seen`` gets
+    True). Wraps ``EngineSession._release`` on the class, as
+    :func:`fleet_watch` wraps ``tick``."""
     release = EngineSession._release
 
     def wrapped(self, slot, req, freed):
-        row = tf.cache_row(self.caches, slot)
+        row = [c for c in tf.cache_row(self.caches, slot) if "pos" not in c]
         if against is None:
             seen[req.rid] = tuple({k: v.clone() for k, v in c.items()}
                                   for c in row)
@@ -3983,38 +4055,52 @@ def commits_seen(accepts: list):
         tf.commit_verify_caches = commit
 
 
-def rwkv_workload(vocab: int, draft=None) -> list:
-    s = RWKV_SERVE
-    return serve.synthetic_workload(
-        s["requests"], vocab, gap=s["gap"], seed=s["seed"],
-        prompt_lens=s["prompt_lens"], max_new=s["max_new"], spec=draft,
-        repetitive=True, shared_prefix=s["shared_prefix"])
+def path_want(cfg, calls: int) -> dict:
+    """Each kernel's launches for ``calls`` passes through a recurrent or
+    hybrid stack (decode steps or ticks, verify ticks, prefill chunks): one
+    ``wkv6`` an RWKV layer, one ``mamba_scan`` a Mamba layer, one fused K/V
+    write, one ring attention and two dequantizes an attention layer (the
+    int8 K/V cache), and nothing else."""
+    kinds = tf.cache_layer_kinds(cfg)
+    n = cfg.n_periods
+    attns = kinds.count("attn") * n * calls
+    want = {k: 0 for k in WRAPPERS}
+    want.update(wkv6=kinds.count("rwkv") * n * calls,
+                mamba_scan=kinds.count("mamba") * n * calls,
+                quantize_int8_into=attns, dequantize_int8=2 * attns,
+                ring_attention=attns)
+    return want
 
 
-def rwkv_engine(cfg, params, dev, **kw) -> ServingEngine:
-    s = RWKV_SERVE
-    return ServingEngine(cfg, None, params, n_slots=s["slots"],
-                         max_len=s["cache_len"],
-                         prefill_chunk=s["prefill_chunk"], device=dev, **kw)
+def check_launches(what: str, launches: dict, want: dict) -> None:
+    if launches != want:
+        raise AssertionError(f"{what} launches {launches}: want {want}")
 
 
-def rwkv_run(name: str, cfg, params, dev, reqs, **kw) -> tuple:
-    """One engine run, the kernel's launches counted and held to one per
-    layer for every decode or verify tick and prefill chunk; every request
-    ends with its budget. Returns (report, line)."""
-    engine = rwkv_engine(cfg, params, dev, **kw)
+def slot_engine(spec: dict, cfg, params, dev, cache_len=None,
+                **kw) -> ServingEngine:
+    """The engine of ``spec`` (a phase's slots, ring and chunk), its ring
+    ``cache_len`` where given."""
+    return ServingEngine(cfg, None, params, n_slots=spec["slots"],
+                         max_len=cache_len or spec["cache_len"],
+                         prefill_chunk=spec["prefill_chunk"], device=dev,
+                         **kw)
+
+
+def carry_run(name: str, spec: dict, cfg, params, dev, reqs, **kw) -> tuple:
+    """One run of ``spec``'s engine, the kernels' launches counted and held
+    to :func:`path_want` of its decode and verify ticks and prefill chunks;
+    every request ends with its budget. Returns (report, line)."""
+    engine = slot_engine(spec, cfg, params, dev, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
     rep = engine.run(reqs)
     torch.cuda.synchronize()
     launches = counters()
-    calls = cfg.n_layers * (rep["decode_ticks"] + rep["verify_ticks"]
-                            + rep["prefill_chunks"])
-    if launches["wkv6"] != calls or any(
-            n for k, n in launches.items() if k != "wkv6"):
-        raise AssertionError(f"{name} launches {launches}: want {calls} "
-                             "wkv6 and nothing else")
+    check_launches(name, launches, path_want(
+        cfg, rep["decode_ticks"] + rep["verify_ticks"]
+        + rep["prefill_chunks"]))
     short = [r.rid for r in reqs if len(r.tokens) != r.max_new_tokens]
     if rep["requests"] != len(reqs) or short:
         raise AssertionError(f"{name}: requests {short} did not end with "
@@ -4038,30 +4124,43 @@ def rwkv_run(name: str, cfg, params, dev, reqs, **kw) -> tuple:
     return rep, line
 
 
+def wkv_against_plain(run, *args, held: dict) -> tuple:
+    """``run(*args[0])`` with the WKV kernel, every call held against its
+    plain version (:func:`wkv_held`), then ``run(*args[1])`` with the
+    plain recurrence. Returns (kernel's result, plain result, None)."""
+    with wkv_held(held):
+        got = run(*args[0])
+    with plain_wkv():
+        want = run(*args[1])
+    return got, want, None
+
+
 @torch.no_grad()
-def rwkv_slot_check(cfg, params, dev) -> dict:
-    """The slot path's kernel against its plain version at the engine's
-    shapes: 8 slots prefilled with the kernel to ``RWKV_SLOT_CHECK``'s
-    lengths (distinct random tokens) through the engine's prefill step, in
-    its chunks and buckets; then row 0's next 1024-token chunk, a decode
-    tick and a verify call of ``draft_k + 1`` tokens (counts 1 to 5) over
-    every slot, each with every kernel call held against its plain version
-    on its own inputs (:func:`wkv_held`), and again from the same caches
-    with the plain recurrence: the argmax equal at a clear margin, the
-    logits' error reported."""
-    engine = rwkv_engine(cfg, params, dev)
-    B, C = RWKV_SERVE["slots"], engine.prefill_chunk
-    k = RWKV_SERVE["draft_k"]
-    caches = tf.init_cache(cfg, B, RWKV_SERVE["cache_len"], device=dev,
+def carry_slot_check(tag: str, cfg, params, dev, spec: dict, check: dict,
+                     against, held_text) -> dict:
+    """The slot path's kernels against their plain versions at ``spec``'s
+    engine's shapes: its slots prefilled with the kernels to
+    ``check["lens"]`` (distinct random tokens) through the engine's
+    prefill step, in its chunks and buckets; then row 0's next chunk, a
+    decode tick and a verify call of ``draft_k + 1`` tokens (counts 1 to
+    5) over every slot, each through ``against`` (every kernel call held
+    against its plain version on its own inputs, then the same call from
+    the same caches with the plain versions, routed alike where the model
+    routes): the argmax equal at a clear margin, the logits' error
+    reported; ``held_text`` writes the held calls' line."""
+    engine = slot_engine(spec, cfg, params, dev)
+    B, C = spec["slots"], engine.prefill_chunk
+    k = spec["draft_k"]
+    caches = tf.init_cache(cfg, B, spec["cache_len"], device=dev,
                            per_slot=True)
-    gen = torch.Generator(device=dev).manual_seed(RWKV_SLOT_CHECK["seed"])
+    gen = torch.Generator(device=dev).manual_seed(check["seed"])
 
     def rand(*shape):
         return torch.randint(1, cfg.vocab_size, shape, generator=gen,
                              device=dev)
 
     tp = time.perf_counter()
-    for b, n in enumerate(RWKV_SLOT_CHECK["lens"]):
+    for b, n in enumerate(check["lens"]):
         prompt = rand(1, n)
         for s in range(0, n, C):
             part = prompt[:, s:s + C]
@@ -4086,20 +4185,22 @@ def rwkv_slot_check(cfg, params, dev) -> dict:
             active=act)[0]}
     held, gaps = {}, {}
     for what, call in calls.items():
-        with wkv_held(held):
-            got = call(clone_caches(caches))
-        with plain_wkv():
-            want = call(clone_caches(caches))
+        got, want, routes = against(call, (clone_caches(caches),),
+                                    (clone_caches(caches),), held=held)
         gaps[what] = logit_gap([got], [want], LOGIT_TOL)
-        check_tokens(f"13b's {what}", gaps[what])
-    log(f"  13b, the kernel against its plain version at the engine's "
-        f"shapes: a {C}-token chunk after {RWKV_SLOT_CHECK['lens'][0]} "
+        if routes is not None:
+            gaps[what].update(moved_tokens=routes.moved,
+                              moved_worst_margin=routes.worst_margin)
+        check_tokens(f"{tag}'s {what}", gaps[what])
+    moved = sum(g.get("moved_tokens", 0) for g in gaps.values())
+    log(f"  {tag}, the kernels against their plain versions at the "
+        f"engine's shapes: a {C}-token chunk after {check['lens'][0]} "
         f"tokens, a decode tick and a verify call of {k + 1} tokens "
         f"(counts {counts}) over {B} slots prefilled to "
-        f"{list(RWKV_SLOT_CHECK['lens'])}; every kernel call on its own "
-        f"inputs: {wkv_line(held)}; the logits against the plain calls: "
-        "error " + ", ".join(f"{w} {g['err_share']:.3e}"
-                             for w, g in gaps.items())
+        f"{list(check['lens'])}; every kernel call on its own inputs: "
+        f"{held_text(held)}; the logits against the plain calls "
+        f"({moved} router near-ties fell otherwise): error "
+        + ", ".join(f"{w} {g['err_share']:.3e}" for w, g in gaps.items())
         + f" of max|logit|, "
         f"{sum(g['clear_tokens'] for g in gaps.values())} clear-margin "
         f"tokens equal; the slots prefilled in {prefill_s:.2f} s")
@@ -4123,7 +4224,7 @@ def rwkv_long(cfg, params, dev) -> dict:
                     ("short", RWKV_LONG["short_len"])):
         req = Request(0, tuple(int(t) for t in gen.integers(
             1, cfg.vocab_size, n)), max_new_tokens=RWKV_LONG["max_new"])
-        engine = rwkv_engine(cfg, params, dev)
+        engine = slot_engine(RWKV_SERVE, cfg, params, dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counters()
@@ -4143,10 +4244,8 @@ def rwkv_long(cfg, params, dev) -> dict:
         rep = sess.report()
         if len(req.tokens) != req.max_new_tokens or at_decode is None:
             raise AssertionError(f"13c {what}: {len(req.tokens)} tokens")
-        calls = cfg.n_layers * (rep["decode_ticks"] + rep["prefill_chunks"])
-        if counters()["wkv6"] != calls:
-            raise AssertionError(f"13c {what}: {counters()['wkv6']} wkv6 "
-                                 f"launches, want {calls}")
+        check_launches(f"13c {what}", counters(), path_want(
+            cfg, rep["decode_ticks"] + rep["prefill_chunks"]))
         out[what] = {**at_decode, "prompt_len": n,
                      "prefill_chunks": rep["prefill_chunks"],
                      "ticks": rep["ticks"], "seconds": secs,
@@ -4290,13 +4389,15 @@ def rwkv_phase(dev) -> dict:
     runs, rows_a, seen_b, seen_c, accepts = {}, {}, {}, {}, []
     k = RWKV_SERVE["draft_k"]
     with released_carries(rows_a):
-        rep_a, runs["A"] = rwkv_run("13b A (FIFO, greedy)", cfg, params, dev,
-                                    rwkv_workload(cfg.vocab_size))
-    reqs = rwkv_workload(cfg.vocab_size, SpecParams(draft_k=k, adapt=False))
+        rep_a, runs["A"] = carry_run("13b A (FIFO, greedy)", RWKV_SERVE, cfg,
+                                     params, dev,
+                                     moe_workload(RWKV_SERVE, cfg.vocab_size))
+    reqs = moe_workload(RWKV_SERVE, cfg.vocab_size,
+                        SpecParams(draft_k=k, adapt=False))
     with released_carries(seen_b, rows_a), commits_seen(accepts):
-        rep_b, runs["B"] = rwkv_run(
+        rep_b, runs["B"] = carry_run(
             f"13b B (speculation, k {k}, drafts replaying A's streams with "
-            "one token changed)", cfg, params, dev, reqs,
+            "one token changed)", RWKV_SERVE, cfg, params, dev, reqs,
             drafter=ReplayDrafter(rep_a["tokens"], cfg.vocab_size))
     same_streams(rep_b, rep_a, "13b B (speculation)")
     counts = {n: accepts.count(n) for n in range(1, k + 2)}
@@ -4309,9 +4410,9 @@ def rwkv_phase(dev) -> dict:
                      accepted_tokens=rep_b["accepted_tokens"],
                      commits_by_tokens=counts)
     with released_carries(seen_c, rows_a):
-        rep_c, runs["C"] = rwkv_run(
-            "13b C (prefix cache)", cfg, params, dev,
-            rwkv_workload(cfg.vocab_size), prefix_cache=True,
+        rep_c, runs["C"] = carry_run(
+            "13b C (prefix cache)", RWKV_SERVE, cfg, params, dev,
+            moe_workload(RWKV_SERVE, cfg.vocab_size), prefix_cache=True,
             prefix_cache_nodes=RWKV_SERVE["prefix_nodes"])
     same_streams(rep_c, rep_a, "13b C (prefix cache)")
     del rows_a
@@ -4330,7 +4431,9 @@ def rwkv_phase(dev) -> dict:
         f"{rep_c['prefix_tokens_reused']} tokens reused")
     launches += sum(r["launches"]["wkv6"] for r in runs.values())
     res["continuous"] = {"runs": runs,
-                         "vs_plain": rwkv_slot_check(cfg, params, dev),
+                         "vs_plain": carry_slot_check(
+                             "13b", cfg, params, dev, RWKV_SERVE,
+                             RWKV_SLOT_CHECK, wkv_against_plain, wkv_line),
                          "seconds": time.perf_counter() - t1}
     res["continuous"]["vs_plain"]["seconds"] = \
         res["continuous"]["seconds"] - sum(r["wall_s"] for r in runs.values())
@@ -4344,7 +4447,7 @@ def rwkv_phase(dev) -> dict:
     # the same shapes): the profiler's processing of a whole chunk's 11,000
     # launches took about 10 s
     step_ticks = {}
-    engine = rwkv_engine(cfg, params, dev)
+    engine = slot_engine(RWKV_SERVE, cfg, params, dev)
     caches = tf.init_cache(cfg, RWKV_SERVE["slots"], RWKV_SERVE["cache_len"],
                            device=dev, per_slot=True)
     tick = {"tokens": torch.ones((RWKV_SERVE["slots"], 1), dtype=torch.int64,
@@ -4385,6 +4488,462 @@ def rwkv_phase(dev) -> dict:
     return res
 
 
+# ------------------------------ Jamba-v0.1 (the Mamba mixer) at full width
+
+def jamba_config(cf: float | None = None):
+    """Jamba-v0.1's decode config (bf16 weights) cut to ``JAMBA["layers"]``
+    layers (one period: 7 Mamba and 1 attention layer, 4 MoE and 4 MLP,
+    each at its published place), the int8 K/V cache forced on, at
+    capacity factor ``cf`` (the config's own where None)."""
+    cfg = decode_config(get_config(JAMBA["arch"]))
+    moe = cfg.moe if cf is None else dataclasses.replace(
+        cfg.moe, capacity_factor=float(cf))
+    return dataclasses.replace(cfg, n_layers=JAMBA["layers"], kv_quant=True,
+                               moe=moe)
+
+
+@contextlib.contextmanager
+def plain_scan():
+    """Run the selective scan with its plain version in place of the kernel
+    (the sublayer looks the wrapper up at each call)."""
+    saved = mamba_scan.mamba_scan
+    mamba_scan.mamba_scan = ref.mamba_scan_recurrent_ref
+    try:
+        yield
+    finally:
+        mamba_scan.mamba_scan = saved
+
+
+@contextlib.contextmanager
+def scan_held(worst: dict):
+    """While the paths run the scan kernel, hold every call against its
+    plain version on the same inputs (:func:`mamba_scan.scan_errors` within
+    ``SCAN_TOL`` and ``SCAN_STATE_TOL``). ``worst["mamba_scan"]`` gets, for
+    each kind of call (decode, chunk, verify), its calls and its largest
+    errors."""
+    kernel = mamba_scan.mamba_scan
+
+    def held(dt, dtx, Bm, C, A, state, valid=None, collect=False):
+        out = kernel(dt, dtx, Bm, C, A, state, valid, collect)
+        kinds = worst.setdefault("mamba_scan", {})
+        e_y, e_s = mamba_scan.scan_errors(out, dt, dtx, Bm, C, A, state,
+                                          valid, collect)
+        what = "verify" if collect else ("decode" if dt.shape[1] == 1
+                                         else "chunk")
+        w = kinds.setdefault(what, {"calls": 0, "y_err": 0.0,
+                                    "state_err": 0.0,
+                                    "shape": list(dt.shape)})
+        w["calls"] += 1
+        w["y_err"], w["state_err"] = max(w["y_err"], e_y), max(
+            w["state_err"], e_s)
+        if not (e_y <= mamba_scan.SCAN_TOL and
+                e_s <= mamba_scan.SCAN_STATE_TOL):
+            raise AssertionError(
+                f"mamba_scan against its plain version at {what} "
+                f"{tuple(dt.shape)}: y error {e_y:.3e} (limit "
+                f"{mamba_scan.SCAN_TOL:.1e}), state error {e_s:.3e} (limit "
+                f"{mamba_scan.SCAN_STATE_TOL:.1e})")
+        return out
+
+    held.launches = 0
+    mamba_scan.mamba_scan = held
+    try:
+        yield
+    finally:
+        mamba_scan.mamba_scan = kernel
+
+
+def jamba_held_line(held: dict) -> str:
+    scan = held.get("mamba_scan", {})
+    rest = {k: v for k, v in held.items() if k != "mamba_scan"}
+    return ", ".join(
+        [f"mamba_scan {k} {v['calls']} calls {v['shape']}: y "
+         f"{v['y_err']:.2e}, state {v['state_err']:.2e}"
+         for k, v in scan.items()] + [held_line(rest)])
+
+
+def jamba_decode(dev, cfg, params) -> dict:
+    """14a: the fixed-batch loop through ``serve_loop``, each row from its
+    own random first token: counted and timed; again with every kernel
+    call held against its plain version on its own inputs (the routing
+    recorded), equal to the counted run bitwise; then the same steps fed
+    the run's own tokens with the plain scan, ring attention and int8,
+    routed as the held run: its tokens equal at a clear margin."""
+    B, steps = JAMBA_DECODE["batch"], JAMBA_DECODE["steps"]
+    args = serve_args(arch=JAMBA["arch"], batch=B,
+                      cache_len=JAMBA_DECODE["cache_len"], steps=steps,
+                      seed=JAMBA["seed"])
+    gen = torch.Generator().manual_seed(JAMBA_DECODE["seed"])
+    first = torch.randint(1, cfg.vocab_size, (B,), generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    run = serve.serve_loop(args, cfg, params, keep_logits=True,
+                           first_tokens=first)
+    torch.cuda.synchronize()
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("14a", launches, path_want(cfg, steps))
+    if run.logits.shape != (steps, B, cfg.vocab_size) or \
+            not bool(torch.isfinite(run.logits).all()):
+        raise AssertionError("14a logits not finite or of the wrong shape")
+    if len(set(map(tuple, run.tokens.tolist()))) < B:
+        raise AssertionError("14a: two rows gave one stream")
+    step = step_fns.make_serve_step(cfg)
+    feed = torch.cat([first[:, None], torch.as_tensor(run.tokens)[:, :-1]],
+                     1).to(dev)
+
+    def fed():
+        caches = tf.init_cache(cfg, B, JAMBA_DECODE["cache_len"],
+                               device=dev)
+        out = []
+        with torch.no_grad():
+            for t in range(steps):
+                logits, caches = step(params, {"tokens": feed[:, t:t + 1]},
+                                      caches)
+                out.append(logits)
+        return out
+
+    held, th = {}, time.perf_counter()
+    (got, want, routes) = against_plain(fed, (), (), held=held)
+    held_s = time.perf_counter() - th
+    if not torch.equal(torch.stack(got), run.logits):
+        raise AssertionError("14a: the held run is not the counted run")
+    gap = {**logit_gap(got, want, LOGIT_TOL), "moved_tokens": routes.moved,
+           "moved_worst_margin": routes.worst_margin}
+    del got, want
+    check_tokens("14a", gap)
+    secs = run.step_seconds
+    steady = float(np.median(secs[1:]))
+    log(f"  14a decode: {steps} steps, batch {B} (each row from its own "
+        f"token), median step {steady * 1e3:.2f} ms ({B / steady:.1f} "
+        f"tokens/s), first {secs[0]:.3f} s, peak {peak / 1e9:.2f} GB, "
+        f"launches {launches}; every kernel call against its plain version: "
+        f"{jamba_held_line(held)}; the same steps with the plain scan, ring "
+        f"attention and int8, routed alike ({gap['moved_tokens']} router "
+        f"near-ties fell otherwise): logit error {gap['err_share']:.3e} of "
+        f"max|logit|, {gap['clear_tokens']} of {B * steps} tokens at a "
+        f"clear margin, all equal; the held and plain runs {held_s:.2f} s")
+    return {"launches": launches, "max_memory_bytes": peak,
+            "median_step_s": steady, "first_step_s": secs[0],
+            "tokens_per_s": B / steady, "vs_plain": gap, "kernels": held}
+
+
+def carry_bytes(caches: tuple, slot: int) -> tuple:
+    """(a slot's bytes in its carry caches, its attention rings' bytes a
+    cached position, its positions)."""
+    row = tf.cache_row(caches, slot)
+    carries = sum(v.numel() * v.element_size() for c in row
+                  if "pos" not in c for v in c.values())
+    per_pos = sum(v[:, :, :1].numel() * v.element_size() for c in row
+                  if "pos" in c for k, v in c.items() if k != "pos")
+    pos = [int(c["pos"][0, 0]) for c in row if "pos" in c]
+    return carries, per_pos, pos
+
+
+def jamba_long(cfg, params, dev) -> dict:
+    """14c: one request with a ``JAMBA_LONG["prompt_len"]``-token prompt
+    (chunks of 1024) and one of ``short_len``, each alone in the engine,
+    16 new tokens each: once its prompt is in, the slot's Mamba carries
+    hold the same bytes for both, and its attention ring a position for
+    each token of the prompt and of its stream but the last."""
+    out = {}
+    gen = np.random.default_rng(JAMBA_LONG["seed"])
+    for what, n in (("long", JAMBA_LONG["prompt_len"]),
+                    ("short", JAMBA_LONG["short_len"])):
+        req = Request(0, tuple(int(t) for t in gen.integers(
+            1, cfg.vocab_size, n)), max_new_tokens=JAMBA_LONG["max_new"])
+        engine = slot_engine(JAMBA_SERVE, cfg, params, dev,
+                             cache_len=JAMBA_LONG["cache_len"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        sess = engine.start([req])
+        at_decode = None
+        while sess.running:
+            sess.tick()
+            if at_decode is None and req.state.name == "ACTIVE":
+                torch.cuda.synchronize()
+                carries, per_pos, pos = carry_bytes(sess.caches, 0)
+                at_decode = {"carry_bytes": carries, "ring_positions": pos,
+                             "emitted": len(req.tokens),
+                             "ring_bytes_in_use": per_pos * pos[0],
+                             "memory_allocated":
+                                 torch.cuda.memory_allocated(),
+                             "tick": sess.now}
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rep = sess.report()
+        if len(req.tokens) != req.max_new_tokens or at_decode is None:
+            raise AssertionError(f"14c {what}: {len(req.tokens)} tokens")
+        check_launches(f"14c {what}", counters(), path_want(
+            cfg, rep["decode_ticks"] + rep["prefill_chunks"]))
+        out[what] = {**at_decode, "prompt_len": n,
+                     "prefill_chunks": rep["prefill_chunks"],
+                     "ticks": rep["ticks"], "seconds": secs,
+                     "max_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": counters()}
+        del sess, engine
+    lg, sh = out["long"], out["short"]
+    if lg["carry_bytes"] != sh["carry_bytes"] or any(
+            o["ring_positions"] != [o["prompt_len"] + o["emitted"] - 1]
+            for o in out.values()):
+        raise AssertionError(f"14c: {out}")
+    log(f"  14c: a {lg['prompt_len']}-token prompt in "
+        f"{lg['prefill_chunks']} chunks, {lg['seconds']:.2f} s with "
+        f"{JAMBA_LONG['max_new']} new tokens; its slot's Mamba carries hold "
+        f"{lg['carry_bytes']} bytes, as the {sh['prompt_len']}-token "
+        f"request's ({sh['carry_bytes']}); its ring holds "
+        f"{lg['ring_bytes_in_use']} bytes of positions against "
+        f"{sh['ring_bytes_in_use']}; device memory in use at the first "
+        f"decode tick {lg['memory_allocated']} against "
+        f"{sh['memory_allocated']} bytes, peaks "
+        f"{lg['max_memory_bytes'] / 1e9:.2f} and "
+        f"{sh['max_memory_bytes'] / 1e9:.2f} GB")
+    return out
+
+
+def scan_shapes() -> dict:
+    """``mamba_scan``'s calls on phase 14's main path, (B, T, collect):
+    14b's decode tick, 14a's step, 14b's verify call and a prefill
+    chunk."""
+    return {"decode": (JAMBA_SERVE["slots"], 1, False),
+            "decode_14a": (JAMBA_DECODE["batch"], 1, False),
+            "verify": (JAMBA_SERVE["slots"], JAMBA_SERVE["draft_k"] + 1,
+                       True),
+            "chunk": (1, JAMBA_SERVE["prefill_chunk"], False)}
+
+
+def scan_inputs(gen, B, T, Di, N, collect, dev) -> tuple:
+    """``mamba_scan``'s arguments at one shape, drawn on the card: dt in a
+    softplus's range, dtx, B and C, Jamba's A (-1 to -N a channel), a
+    nonzero state, every token valid."""
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, Di), generator=gen, device=dev) - 4.0)
+    dtx = dt * torch.randn((B, T, Di), generator=gen, device=dev)
+    Bm, C = (torch.randn((B, T, N), generator=gen, device=dev)
+             for _ in range(2))
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=dev).expand(Di, N).contiguous()
+    S = torch.randn((B, Di, N), generator=gen, device=dev) * 0.3
+    valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    return dt, dtx, Bm, C, A, S, valid, collect
+
+
+def scan_timings(dev, cfg) -> dict:
+    """The kernel at the main path's shapes (14b's decode tick, 14a's step,
+    the verify call and a 1024-token chunk, Jamba's 8192 channels of 16
+    states): against its plain version on the same inputs, timed (CUDA
+    events; at the ticks also the profiler's device time a launch) beside
+    its bound, the plain version's time and the wrapper's host cost a call;
+    fails if ptxas spilled a register of any instantiation."""
+    m = cfg.mamba_cfg()
+    Di, N = m.d_inner, m.d_state
+    gen = torch.Generator(device=dev).manual_seed(26)
+    out = {}
+    for what, (B, T, collect) in scan_shapes().items():
+        args = scan_inputs(gen, B, T, Di, N, collect, dev)
+        got = mamba_scan.mamba_scan(*args)
+        want = ref.mamba_scan_recurrent_ref(*args)
+        e_y, e_s = mamba_scan.scan_errors(got, *args)
+        if not (e_y <= mamba_scan.SCAN_TOL and
+                e_s <= mamba_scan.SCAN_STATE_TOL):
+            raise AssertionError(f"mamba_scan at the {what} shape: errors "
+                                 f"{e_y:.3e}, {e_s:.3e}")
+        abs_err = max(max_abs_err(got[0], want[0]),
+                      max_abs_err(got[1], want[1]))
+        t_k = time_ms(lambda: mamba_scan.mamba_scan(*args))
+        # a tick's back-to-back events read the host's launch cost: its
+        # device time a launch comes from the profiler
+        dev_ms = device_ms(lambda: mamba_scan.mamba_scan(*args)) \
+            if T == 1 else None
+        host = host_ms(lambda: mamba_scan.mamba_scan(*args))
+        # the plain chunk is a Python loop of some 6,000 launches: one call
+        t_p = time_ms(lambda: ref.mamba_scan_recurrent_ref(*args),
+                      reps=1 if T > 8 else 20)
+        nbytes, nops = mamba_scan.work(B, T, Di, N, collect)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / F32_OPS_PER_S * 1e3
+        out[what] = {"shape": [B, T, Di, N], "collect": collect, "ms": t_k,
+                     "device_ms": dev_ms, "host_ms": host, "plain_ms": t_p,
+                     "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes, "ops": nops,
+                     "y_err": e_y, "state_err": e_s, "max_abs_err": abs_err}
+        log(f"  mamba_scan {what} {[B, T, Di, N]}"
+            f"{' collect' if collect else ''}: kernel {t_k:.4f} ms"
+            + (f" (device {dev_ms:.4f} ms a launch)" if dev_ms else "")
+            + f", wrapper's host cost {host * 1e3:.2f} us a call, plain "
+            f"{t_p:.4f} ms, bound {out[what]['bound_ms']:.5f} ms "
+            f"({out[what]['bound_by']}); errors y {e_y:.2e}, state "
+            f"{e_s:.2e}")
+        del args, got, want
+    ptxas = _build.ptxas_info("mamba_scan", "mamba_scan_kernel")
+    spilled = [ln for ln in ptxas if "0 bytes spill stores" not in ln
+               or "0 bytes spill loads" not in ln]
+    if spilled or not ptxas:
+        raise AssertionError(f"mamba_scan spills registers: {ptxas}")
+    src, replaces = KERNEL_FILES["mamba_scan"]
+    head = out["decode"]
+    # a tick's time is its device time a launch, as wkv6's
+    return {"name": "mamba_scan", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max(o["max_abs_err"] for o in out.values()),
+            "ms": head["device_ms"], "events_ms": head["ms"],
+            "host_ms": head["host_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "shape": head["shape"],
+            "ptxas": ptxas, "shapes": out}
+
+
+def jamba_phase(dev) -> dict:
+    """14a-14c and the scan's timings; returns each part's numbers and the
+    kernels' launches over the main runs (14a's counted run, 14b's A, B
+    and C, 14c's two)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launch = launch_us(dev)
+    log(f"  the host's cost of one small launch at the phase's start: "
+        f"{launch:.2f} us")
+    cfg = jamba_config()
+    full = get_config(JAMBA["arch"])
+    m = cfg.mamba_cfg()
+    kinds = [s.kind for layer in cfg.pattern for s in layer]
+    log(f"  {cfg.name}: {cfg.n_layers} of {full.n_layers} layers (one "
+        f"period: {kinds.count('mamba')} Mamba, {kinds.count('attn')} "
+        f"attention, {kinds.count('moe')} MoE, {kinds.count('mlp')} MLP; "
+        f"depth cut to fit one card), d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hdim}, {cfg.moe.n_experts} "
+        f"experts of d_ff {cfg.d_ff}, top-{cfg.moe.top_k}, vocab "
+        f"{cfg.vocab_size}, untied embeddings; Mamba d_inner {m.d_inner}, "
+        f"d_state {m.d_state}, dt_rank {m.dt_rank}, d_conv {m.d_conv}; bf16 "
+        f"weights, int8 K/V")
+    torch.cuda.reset_peak_memory_stats()
+    ti = time.perf_counter()
+    params = tf.init_params(cfg, JAMBA["seed"], dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - ti
+    n, active = active_params(cfg, params)
+    log(f"  weights drawn on the card in {init_s:.2f} s: {n} parameters "
+        f"({active} active a token), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    res = {"params": n, "active_params": active, "init_s": init_s,
+           "launch_us": launch}
+    ta = time.perf_counter()
+    res["decode"] = jamba_decode(dev, cfg, params)
+    res["decode"]["seconds"] = time.perf_counter() - ta
+    log(f"  14a seconds {res['decode']['seconds']:.2f}")
+    launches = dict(res["decode"]["launches"])
+    t1 = time.perf_counter()
+    E = cfg.moe.n_experts
+    ecfg = jamba_config(cf=E)
+    runs, rows_a, seen_b, seen_c, accepts = {}, {}, {}, {}, []
+    k = JAMBA_SERVE["draft_k"]
+    with released_carries(rows_a):
+        rep_a, runs["A"] = carry_run(f"14b A (FIFO, greedy, cf {E})",
+                                     JAMBA_SERVE, ecfg, params, dev,
+                                     moe_workload(JAMBA_SERVE,
+                                                  cfg.vocab_size))
+    reqs = moe_workload(JAMBA_SERVE, cfg.vocab_size,
+                        SpecParams(draft_k=k, adapt=False))
+    with released_carries(seen_b, rows_a), commits_seen(accepts):
+        rep_b, runs["B"] = carry_run(
+            f"14b B (speculation, k {k}, drafts replaying A's streams with "
+            "one token changed)", JAMBA_SERVE, ecfg, params, dev, reqs,
+            drafter=ReplayDrafter(rep_a["tokens"], cfg.vocab_size))
+    same_streams(rep_b, rep_a, "14b B (speculation)")
+    counts = {c: accepts.count(c) for c in range(1, k + 2)}
+    if not rep_b["accepted_tokens"] or not all(counts.values()) or \
+            len(seen_b) != len(reqs):
+        raise AssertionError(f"14b B: {rep_b['accepted_tokens']} drafts "
+                             f"accepted, commits of 1..{k + 1} tokens "
+                             f"{counts}, {len(seen_b)} carries held")
+    runs["B"].update(drafted_tokens=rep_b["drafted_tokens"],
+                     accepted_tokens=rep_b["accepted_tokens"],
+                     commits_by_tokens=counts)
+    with released_carries(seen_c, rows_a):
+        rep_c, runs["C"] = carry_run(
+            "14b C (prefix cache)", JAMBA_SERVE, ecfg, params, dev,
+            moe_workload(JAMBA_SERVE, cfg.vocab_size), prefix_cache=True,
+            prefix_cache_nodes=JAMBA_SERVE["prefix_nodes"])
+    same_streams(rep_c, rep_a, "14b C (prefix cache)")
+    del rows_a
+    if rep_c["prefix_hits"] < 1 or \
+            rep_c["prefill_chunks"] >= rep_a["prefill_chunks"] or \
+            len(seen_c) != len(reqs):
+        raise AssertionError(f"14b C: {rep_c['prefix_hits']} prefix hits, "
+                             f"{rep_c['prefill_chunks']} chunks against "
+                             f"{rep_a['prefill_chunks']}, {len(seen_c)} "
+                             "carries held")
+    runs["C"].update(prefix_hits=rep_c["prefix_hits"],
+                     prefix_tokens_reused=rep_c["prefix_tokens_reused"])
+    log(f"  14b: B's and C's streams bitwise A's, and each request's Mamba "
+        f"carries at its release ({len(seen_b)} and {len(seen_c)}); B "
+        f"accepted {rep_b['accepted_tokens']} of {rep_b['drafted_tokens']} "
+        f"drafts, its commits by tokens kept {counts}; C "
+        f"{rep_c['prefix_hits']} prefix hits, "
+        f"{rep_c['prefix_tokens_reused']} tokens reused")
+    for r in runs.values():
+        for name, c in r["launches"].items():
+            launches[name] += c
+    res["continuous"] = {"runs": runs,
+                         "vs_plain": carry_slot_check(
+                             "14b", ecfg, params, dev, JAMBA_SERVE,
+                             JAMBA_SLOT_CHECK, against_plain,
+                             jamba_held_line),
+                         "seconds": time.perf_counter() - t1}
+    res["continuous"]["vs_plain"]["seconds"] = \
+        res["continuous"]["seconds"] - sum(r["wall_s"] for r in runs.values())
+    log(f"  14b seconds {res['continuous']['seconds']:.2f}")
+    tc = time.perf_counter()
+    res["long"] = jamba_long(ecfg, params, dev)
+    log(f"  14c seconds {time.perf_counter() - tc:.2f}")
+    for r in res["long"].values():
+        for name, c in r["launches"].items():
+            launches[name] += c
+    # one decode tick over 8 active slots and one 1024-token chunk, traced
+    traces = {}
+    engine = slot_engine(JAMBA_SERVE, ecfg, params, dev)
+    caches = tf.init_cache(ecfg, JAMBA_SERVE["slots"],
+                           JAMBA_SERVE["cache_len"], device=dev,
+                           per_slot=True)
+    tick = {"tokens": torch.ones((JAMBA_SERVE["slots"], 1),
+                                 dtype=torch.int64, device=dev)}
+    act = np.ones(JAMBA_SERVE["slots"], bool)
+    chunk = torch.randint(1, cfg.vocab_size,
+                          (1, JAMBA_SERVE["prefill_chunk"]), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              27))
+    prefill = step_fns.make_prefill_step(ecfg)
+    ttr = time.perf_counter()
+    traces["decode"] = device_breakdown(
+        lambda: engine._decode(params, tick, caches, act), top=10,
+        match="mamba_scan")
+    traces["chunk"] = device_breakdown(
+        lambda: prefill(params, chunk, caches, 0, chunk.shape[1]), top=10,
+        match="mamba_scan")
+    log(f"  14 traces seconds {time.perf_counter() - ttr:.2f}")
+    for what, tr in traces.items():
+        scan_ms = tr["mamba_scan_ms"] = tr.pop("matched_ms")
+        log(f"  14 one {what} traced: {tr['device_ops']} device operations, "
+            f"busy {tr['device_busy_ms']:.2f} ms of "
+            f"{tr['traced_wall_ms']:.2f} (idle "
+            f"{tr['device_idle_share']:.3f}); mamba_scan {scan_ms:.3f} ms: "
+            f"{json.dumps(tr['top_kernels'])}")
+    res["traces"] = traces
+    del engine, caches, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tt = time.perf_counter()
+    res["mamba_scan"] = scan_timings(dev, cfg)
+    log(f"  14 timings seconds {time.perf_counter() - tt:.2f}")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def launch_us(dev) -> float:
     """The host's cost of one small launch, in microseconds: 2,000 adds on
     16 elements of the card, no sync between them, after 100 unclocked.
@@ -4401,7 +4960,7 @@ def launch_us(dev) -> float:
     return cost
 
 
-PHASES = tuple(range(1, 14))
+PHASES = tuple(range(1, 15))
 # a phase that needs another's results: phase 8 reads phase 7's peak
 # memory, phases 9 and 10 extend phase 4's row of the fused K/V write
 NEEDS = {8: (7,), 9: (4,), 10: (4,)}
@@ -4579,11 +5138,24 @@ def main(argv=None) -> int:
         main_launches["wkv6"] += rwkv["launches"]["wkv6"]
         log(f"phase 13 seconds {rwkv['seconds']:.2f}")
         log("rwkv path: " + json.dumps(rwkv))
+    if 14 in run:
+        log("phase 14: the Mamba mixer, Jamba-v0.1 at full width (one "
+            "period of 8 layers)")
+        jamba = jamba_phase(dev)
+        rows["mamba_scan"] = jamba.pop("mamba_scan")
+        for name in WRAPPERS:
+            if name in rows and jamba["launches"][name]:
+                rows[name].setdefault("launches_by_path", {})["jamba"] = \
+                    jamba["launches"][name]
+            main_launches[name] += jamba["launches"][name]
+        log(f"phase 14 seconds {jamba['seconds']:.2f}")
+        log("jamba path: " + json.dumps(jamba))
     log(card)
     # each kernel's main path, by the phases that drive it
     paths = {"combine3": {3}, "compress_bf16": {3}, "decompress_bf16": {3},
              "quantize_int8_into": {5}, "dequantize_int8": {5},
-             "flash_attention": {7}, "ring_attention": {5}, "wkv6": {13}}
+             "flash_attention": {7}, "ring_attention": {5}, "wkv6": {13},
+             "mamba_scan": {14}}
     for name, by in paths.items():
         if by & run and main_launches[name] == 0:
             raise AssertionError(f"{name} was not launched on its main path")

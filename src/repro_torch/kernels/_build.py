@@ -28,7 +28,8 @@ __all__ = ["SOURCES", "build", "load", "build_dir", "ptxas_info"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"block_combine": "block_combine.cu", "quantize": "quantize.cu",
            "flash_attention": "flash_attention.cu",
-           "ring_attention": "ring_attention.cu", "wkv6": "wkv6.cu"}
+           "ring_attention": "ring_attention.cu", "wkv6": "wkv6.cu",
+           "mamba_scan": "mamba_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

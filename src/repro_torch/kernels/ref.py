@@ -3,8 +3,8 @@
 Each wrapper in :mod:`repro_torch.kernels.block_combine`,
 :mod:`repro_torch.kernels.quantize`,
 :mod:`repro_torch.kernels.flash_attention`,
-:mod:`repro_torch.kernels.ring_attention` and :mod:`repro_torch.kernels.wkv`
-runs these for a tensor on the CPU;
+:mod:`repro_torch.kernels.ring_attention`, :mod:`repro_torch.kernels.wkv`
+and :mod:`repro_torch.kernels.mamba_scan` runs these for a tensor on the CPU;
 ``chip_smoke.py`` and the GPU tests hold each CUDA kernel against them on the
 card. Two-op combines round the intermediate to the operand type, as the
 reference's jnp oracles do.
@@ -26,7 +26,7 @@ __all__ = ["OPS", "INV127", "combine2_ref", "combine3_ref",
            "compress_bf16_ref", "decompress_bf16_ref", "quantize_int8_ref",
            "quantize_int8_into_ref", "dequantize_int8_ref",
            "flash_attention_ref", "ring_attention_ref",
-           "wkv6_recurrent_ref"]
+           "wkv6_recurrent_ref", "mamba_scan_recurrent_ref"]
 
 # f32(1/127) (bits 0x3c010204), exact as a Python float
 INV127 = 0.007874015718698502
@@ -225,3 +225,38 @@ def wkv6_recurrent_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o, (torch.stack(states, 1) if states else
                    torch.zeros((B, 0, H, K, K), dtype=f32, device=r.device))
     return o, S
+
+
+def mamba_scan_recurrent_ref(dt: torch.Tensor, dtx: torch.Tensor,
+                             Bm: torch.Tensor, C: torch.Tensor,
+                             A: torch.Tensor, state: torch.Tensor,
+                             valid: torch.Tensor | None = None,
+                             collect: bool = False) -> tuple:
+    """The Mamba selective scan, token by token (the reference's
+    ``ssm.mamba_scan_recurrent``, op for op): dt, dtx (B, T, Di) f32, Bm, C
+    (B, T, N) f32, A (Di, N) f32 (negative), state (B, Di, N) f32, valid
+    (B, T) bool or None. For each token, ``h' = exp(dt A) * h + dtx Bm``
+    (a product, a product, an exp, a product and a sum, each rounded), ``y
+    = sum_n h'[n] C[n]``, and ``h <- h'`` where ``valid`` (an invalid token
+    leaves h unchanged; its y is still h' . C). Returns (y (B, T, Di) f32,
+    the final state), or with ``collect`` (y, states (B, T, Di, N)), entry
+    t the state after token t."""
+    f32 = torch.float32
+    h = state.to(f32)
+    ys, states = [], []
+    for t in range(dt.shape[1]):
+        a0 = dt[:, t, :, None] * A[None]
+        b0 = dtx[:, t, :, None] * Bm[:, t, None, :]
+        nxt = torch.exp(a0) * h + b0
+        h = nxt if valid is None else torch.where(valid[:, t, None, None],
+                                                  nxt, h)
+        ys.append(torch.einsum("bdn,bn->bd", nxt, C[:, t]))
+        if collect:
+            states.append(h)
+    B, T, Di = dt.shape
+    y = (torch.stack(ys, 1) if ys else
+         torch.zeros((B, 0, Di), dtype=f32, device=dt.device))
+    if collect:
+        return y, (torch.stack(states, 1) if states else torch.zeros(
+            (B, 0, Di, A.shape[1]), dtype=f32, device=dt.device))
+    return y, h

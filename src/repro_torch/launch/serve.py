@@ -46,6 +46,15 @@ prefill call) runs both ways:
       --reduced --continuous --speculate --prefix-cache --shared-prefix 16 \\
       --prefill-chunk 8 --requests 6 --slots 3 --device cpu
 
+Jamba-v0.1 (Mamba carries beside one attention ring a period, MoE on the
+odd layers) too:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b \\
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b \\
+      --reduced --continuous --speculate --prefix-cache --shared-prefix 16 \\
+      --prefill-chunk 8 --requests 6 --slots 3 --device cpu
+
 The config is the one the reference decodes with (``decode_config``):
 bf16 parameters, and the int8 K/V cache where ``n_kv_heads * head_dim >=
 2048`` (MiniCPM-2B at full width). Under bf16 compute, bf16 parameters give

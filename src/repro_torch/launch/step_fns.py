@@ -168,15 +168,15 @@ def make_prefill_step(cfg: tf.ModelConfig, pcfg: ParallelConfig | None = None,
     (first token (0-dim int64 on the device), caches)``.
 
     The prompt chunk runs through the stack as a single row, on views of
-    the slot's row of the per-slot caches, so its K/V and RWKV carries land
-    in the slot in place and every other slot stays bit-unchanged; the cost
-    follows the chunk, not the slot count. ``resume=False`` starts the row
-    at position 0 (a first chunk), ``resume=True`` continues it (chunks
-    2..n). The token, meaningful on the final chunk, is the argmax of the
-    last real position's logits, or with ``sampling_row`` (``{key (2,),
-    temperature, top_k, top_p}``) the seeded sampler's draw at step 0. The
-    reference's ``into_slots=False`` form (the dry run's prefill proxy)
-    comes with queue 1's item 7."""
+    the slot's row of the per-slot caches, so its K/V and recurrent (RWKV,
+    Mamba) carries land in the slot in place and every other slot stays
+    bit-unchanged; the cost follows the chunk, not the slot count.
+    ``resume=False`` starts the row at position 0 (a first chunk),
+    ``resume=True`` continues it (chunks 2..n). The token, meaningful on
+    the final chunk, is the argmax of the last real position's logits, or
+    with ``sampling_row`` (``{key (2,), temperature, top_k, top_p}``) the
+    seeded sampler's draw at step 0. The reference's ``into_slots=False``
+    form (the dry run's prefill proxy) comes with queue 1's item 7."""
     if not into_slots:
         raise NotImplementedError(
             "the full-sequence prefill proxy is not ported yet: ROADMAP.md "

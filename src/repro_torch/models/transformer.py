@@ -32,16 +32,18 @@ tokens' slots back; the reference scores into fresh arrays and restores
 from the old ones.
 
 This slice builds the decoders of sublayer kinds ``attn``, ``mlp``,
-``moe`` and ``rwkv`` (token inputs). A config with another kind (``mamba``,
-``xattn``), M-RoPE, embeddings input or an encoder is a valid config, but
+``moe``, ``rwkv`` and ``mamba`` (token inputs). A config with another kind
+(``xattn``), M-RoPE, embeddings input or an encoder is a valid config, but
 building or running its model raises ``NotImplementedError`` naming the
 ROADMAP item that ports it.
 
-An ``rwkv`` sublayer (:mod:`repro_torch.models.ssm`) carries recurrent
-state instead of a ring: its cache is the token-shift carries and the WKV
-state, per row, with no position. The slot ops write those rows in place
-too; a verify call collects a state per token and
-:func:`commit_verify_caches` writes the accepted one.
+An ``rwkv`` or ``mamba`` sublayer (:mod:`repro_torch.models.ssm`) carries
+recurrent state instead of a ring: its cache is the token-shift carries
+and the WKV state, or the conv window and the selective-scan state, per
+row, with no position. A model may hold both kinds of cache (Jamba's
+rings and Mamba carries); the slot ops tell them apart by ``"pos" in c``
+and write a carry's rows in place too; a verify call collects a state per
+token and :func:`commit_verify_caches` writes the accepted one.
 
 MoE sublayers route each token to its ``top_k`` experts by the f32 router
 logits, as the reference does, in one of its two forms (``MoESettings.impl``):
@@ -70,8 +72,9 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import Params
 
 __all__ = ["MoESettings", "SubSpec", "ModelConfig", "PORTED_KINDS",
-           "check_supported", "moe_capacity", "moe_route", "init_params",
-           "init_cache", "embed_inputs", "forward", "unembed", "chunked_ce_loss", "loss_fn", "decode_step",
+           "CARRY_KINDS", "check_supported", "moe_capacity", "moe_route",
+           "init_params", "init_cache", "embed_inputs", "forward",
+           "unembed", "chunked_ce_loss", "loss_fn", "decode_step",
            "advance_pos", "cache_layer_kinds", "prefill_call_bound",
            "supports_slot_serving", "reset_cache_slots", "cache_row",
            "splice_row_pos", "prefill_step", "extract_cache_row",
@@ -79,7 +82,9 @@ __all__ = ["MoESettings", "SubSpec", "ModelConfig", "PORTED_KINDS",
            "supports_speculation", "save_ring_slots", "restore_ring_slots",
            "verify_forward", "commit_verify_caches", "verify_accept"]
 
-PORTED_KINDS = ("attn", "mlp", "moe", "rwkv")
+PORTED_KINDS = ("attn", "mlp", "moe", "rwkv", "mamba")
+# the kinds whose cache is a recurrent carry (no ring, no position)
+CARRY_KINDS = ("rwkv", "mamba")
 REMAT_POLICIES = ("full", "dots")
 _KINDS_ITEM = ("ROADMAP.md queue 1, 'Next' item 3 (other sublayer kinds and "
                "inputs)")
@@ -167,6 +172,10 @@ class ModelConfig:
         return ssm.RWKVConfig(d_model=self.d_model,
                               head_dim=self.rwkv_head_dim)
 
+    def mamba_cfg(self) -> ssm.MambaConfig:
+        return ssm.MambaConfig(d_model=self.d_model,
+                               d_state=self.mamba_d_state)
+
 
 def _norm_pattern(pattern):
     return tuple(tuple(SubSpec(kind=s) if isinstance(s, str) else s
@@ -200,12 +209,16 @@ def check_supported(cfg: ModelConfig) -> None:
 def _sub_init(keys, cfg: ModelConfig, s: SubSpec, device) -> Params:
     """The reference's ``_sub_init`` for each period key of ``keys``,
     stacked over periods: attention takes the first half of each key's
-    split in two, the MLP, the MoE and the RWKV block the key itself. The
-    RWKV block has no ``norm``: it norms inside (``ln1``, ``ln2``)."""
+    split in two, the MLP, the MoE, the RWKV and the Mamba block the key
+    itself. The RWKV block has no ``norm``: it norms inside (``ln1``,
+    ``ln2``)."""
     dt = cfg.param_dtype
     if s.kind == "rwkv":
         return ssm.rwkv_block_init(keys, cfg.rwkv_cfg(), dt, device)
     norm = L.rmsnorm_init(cfg.d_model, device=device, periods=len(keys))
+    if s.kind == "mamba":
+        return {"norm": norm, **ssm.mamba_init(keys, cfg.mamba_cfg(), dt,
+                                               device)}
     if s.kind == "attn":
         halves = [threefry.split(k, 2)[0] for k in keys]
         return {"norm": norm, **L.attn_init(halves, cfg.attn_cfg(s), dt,
@@ -255,8 +268,8 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> Params:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_dtype=torch.bfloat16, device=None, per_slot: bool = False,
                ring_slack: int = 0) -> tuple:
-    """Stacked ``(n_periods, ...)`` caches, one dict per attention or RWKV
-    sublayer of the pattern (:func:`cache_layer_kinds`). Attention: ring
+    """Stacked ``(n_periods, ...)`` caches, one dict per attention, RWKV or
+    Mamba sublayer of the pattern (:func:`cache_layer_kinds`). Attention: ring
     caches ``k``/``v`` ``(n_periods, batch, S, KV, dh)`` in ``kv_dtype``,
     or int8 with f32 scales ``ks``/``vs`` ``(n_periods, batch, S, KV, 1)``
     when ``cfg.kv_quant``; ``S`` is ``max_len``, or the window or chunk
@@ -266,18 +279,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     engine). It stays on the host, so the write slot and the validity mask
     need no device sync. RWKV: the carries ``shift1``/``shift2``
     ``(n_periods, batch, 1, D)`` in the compute dtype and the WKV
-    ``state`` ``(n_periods, batch, H, K, K)`` f32, zeros, one row per batch
-    row whatever ``per_slot``; ``max_len``, ``kv_dtype`` and
-    ``cfg.kv_quant`` do not touch them."""
+    ``state`` ``(n_periods, batch, H, K, K)`` f32; Mamba: the conv window
+    ``conv`` ``(n_periods, batch, d_conv - 1, Di)`` in the compute dtype
+    and the scan state ``ssm`` ``(n_periods, batch, Di, N)`` f32. A carry
+    is zeros, one row per batch row whatever ``per_slot``; ``max_len``,
+    ``kv_dtype`` and ``cfg.kv_quant`` do not touch it."""
     check_supported(cfg)
     dev = resolve_device(device)
     KV, dh, n = cfg.n_kv_heads, cfg.hdim, cfg.n_periods
     caches = []
     for layer in cfg.pattern:
         for s in layer:
-            if s.kind == "rwkv":
-                spec = ssm.rwkv_cache_spec(cfg.rwkv_cfg(), batch,
-                                           cfg.compute_dtype)
+            if s.kind in CARRY_KINDS:
+                spec = (ssm.rwkv_cache_spec(cfg.rwkv_cfg(), batch,
+                                            cfg.compute_dtype)
+                        if s.kind == "rwkv" else
+                        ssm.mamba_cache_spec(cfg.mamba_cfg(), batch,
+                                             cfg.compute_dtype))
                 caches.append({name: torch.zeros((n, *shape), dtype=dt,
                                                  device=dev)
                                for name, (shape, dt) in spec.items()})
@@ -306,8 +324,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def cache_layer_kinds(cfg: ModelConfig) -> tuple:
     """Kind of each entry of the caches tuple, in cache order: ``"attn"``
-    (a ring and ``pos``) or ``"rwkv"`` (the carries and the WKV state; the
-    reference's ``"mamba"`` caches come with queue 1's item 3)."""
+    (a ring and ``pos``), ``"rwkv"`` (the carries and the WKV state) or
+    ``"mamba"`` (the conv window and the scan state)."""
     return tuple(s.kind for layer in cfg.pattern for s in layer
                  if s.kind in ("attn", "mamba", "rwkv"))
 
@@ -449,24 +467,31 @@ def _period(tree, i: int):
 def _apply_sub(sp: Params, s: SubSpec, cfg: ModelConfig, x: torch.Tensor,
                positions, cache, lengths=None, active=None,
                serving: bool = False, aux: bool = True, collect=None):
-    """One sublayer (``attn``, ``mlp``, ``moe`` or ``rwkv``: the entry
-    points have checked the config); returns (x, the MoE balance loss or
-    None). A decode ``cache`` (one period's views) is written in place:
+    """One sublayer (``attn``, ``mlp``, ``moe``, ``rwkv`` or ``mamba``: the
+    entry points have checked the config); returns (x, the MoE balance loss
+    or None). A decode ``cache`` (one period's views) is written in place:
     per-slot caches (``pos`` per row) through ``attention_decode_slots``,
-    with ``lengths`` (prefill pads; host integers, an RWKV block's on the
-    device) and ``active`` (rows to write); an RWKV cache by
-    :func:`_apply_rwkv`. ``serving`` (a call on per-slot caches)
-    takes the norm, the MLP's products and the MoE's router and expert
-    products through ``layers.serve_rows``, as ``attention_decode_slots``
-    takes its own, so that a token's bits do not depend on how many tokens
-    share its call or its expert. ``aux=False`` (decoding) skips the
-    balance loss. ``collect`` (a list; a verify call) takes an RWKV
-    block's per-token checkpoints."""
+    with ``lengths`` (prefill pads; host integers, a recurrent block's on
+    the device) and ``active`` (rows to write); an RWKV or Mamba cache by
+    :func:`_write_carries`. ``serving`` (a call on per-slot caches)
+    takes the norm, the MLP's, the Mamba block's and the MoE's router and
+    expert products through ``layers.serve_rows``, as
+    ``attention_decode_slots`` takes its own, so that a token's bits do not
+    depend on how many tokens share its call or its expert. ``aux=False``
+    (decoding) skips the balance loss. ``collect`` (a list; a verify call)
+    takes a recurrent block's per-token checkpoints."""
     if s.kind == "rwkv":
         return _apply_rwkv(sp, cfg, x, cache, lengths, active, serving,
                            collect), None
     h = (L.serve_rmsnorm if serving else L.rmsnorm)(sp["norm"], x)
     mm = L.serve_matmul if serving else torch.matmul
+    if s.kind == "mamba":
+        o, new = ssm.mamba_block(sp, h, cfg.mamba_cfg(), cache,
+                                 lengths=lengths,
+                                 collect_states=collect is not None,
+                                 matmul=mm)
+        _write_carries(cache, new, active, collect)
+        return x + o, None
     if s.kind == "moe":
         fn = _moe_dispatch if cfg.moe.impl == "dispatch" else _moe_masked
         o, a = fn(sp, h, cfg, mm, aux)
@@ -489,21 +514,33 @@ def _apply_rwkv(sp: Params, cfg: ModelConfig, x: torch.Tensor, cache,
                 lengths, active, serving: bool, collect) -> torch.Tensor:
     """One RWKV block (``ssm.rwkv_block``), its products and norms through
     ``layers.serve_rows`` when ``serving``. ``lengths`` ((B,) int64 on x's
-    device, or None) mark each row's real tokens. With a decode ``cache`` (one period's
-    views) the new carries and state are written into the rows ``active``
-    marks (every row where None), in place; with ``collect`` the block's
-    per-token checkpoints are appended to it instead and the cache is not
-    written."""
+    device, or None) mark each row's real tokens; the new carries go
+    through :func:`_write_carries`."""
     mm, norm = (L.serve_matmul, L.serve_rmsnorm) if serving \
         else (torch.matmul, L.rmsnorm)
     x, new = ssm.rwkv_block(sp, x, cfg.rwkv_cfg(), cache, lengths=lengths,
                             collect_states=collect is not None, matmul=mm,
                             norm=norm)
+    _write_carries(cache, new, active, collect)
+    return x
+
+
+def _write_carries(cache, new: Params, active, collect) -> None:
+    """A recurrent block's new cache ``new``: with ``collect`` (a verify
+    call) its per-token checkpoints are appended to it and the cache is
+    not written; else, with a decode ``cache`` (one period's views), it is
+    written into the rows ``active`` marks (every row where None), in
+    place."""
     if collect is not None:
         collect.append(new)
     elif cache is not None:
         _write_rows(cache, new, active)
-    return x
+
+
+def _leaf_device(cache: Params) -> torch.device:
+    """The device of a carry cache's leaves (any leaf: an RWKV cache's
+    ``state``, a Mamba cache's ``conv`` and ``ssm``)."""
+    return next(iter(cache.values())).device
 
 
 def _write_rows(cache: Params, new: Params, rows=None) -> None:
@@ -516,7 +553,7 @@ def _write_rows(cache: Params, new: Params, rows=None) -> None:
     picked = torch.nonzero(rows).flatten()
     if not len(picked):
         return
-    idx = host_to(picked, cache["state"].device)
+    idx = host_to(picked, _leaf_device(cache))
     for name, leaf in cache.items():
         leaf.index_copy_(0, idx, new[name].index_select(0, idx))
 
@@ -549,10 +586,10 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
     """Loop over periods (the reference scans); returns (x, aux, caches),
     ``aux`` the MoE balance losses summed over every sublayer (None without
     MoE, and when decoding, where it is unused). Decode
-    writes each period's new K/V and RWKV carries into the stacked caches
-    in place (slot calls: ``lengths`` and ``active`` as in
+    writes each period's new K/V and recurrent carries into the stacked
+    caches in place (slot calls: ``lengths`` and ``active`` as in
     ``attention_decode_slots``). ``collect`` (a dict; a verify call) gets,
-    for each RWKV cache's index, its per-token checkpoints period by
+    for each carry cache's index, its per-token checkpoints period by
     period, and those caches are not written. Under autograd with
     ``cfg.remat`` each sublayer is checkpointed under
     ``cfg.remat_policy``."""
@@ -562,12 +599,12 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                                       or _per_slot(caches))
     want_aux = caches is None
     aux = None
-    # an RWKV block reads the lengths on the device: one copy for the call
-    rwkv_lengths = None
-    if lengths is not None and any(s.kind == "rwkv" for layer in pattern
+    # a recurrent block reads the lengths on the device: one copy a call
+    carry_lengths = None
+    if lengths is not None and any(s.kind in CARRY_KINDS for layer in pattern
                                    for s in layer):
-        rwkv_lengths = host_to(torch.as_tensor(lengths).to("cpu", torch.int64),
-                               x.device)
+        carry_lengths = host_to(
+            torch.as_tensor(lengths).to("cpu", torch.int64), x.device)
     if remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"{cfg.name}: remat_policy {cfg.remat_policy!r}; "
                          f"want one of {REMAT_POLICIES}")
@@ -576,9 +613,9 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
         for pos, layer in enumerate(pattern):
             for si, s in enumerate(layer):
                 c = col = None
-                if caches is not None and s.kind in ("attn", "rwkv"):
+                if caches is not None and s.kind in ("attn",) + CARRY_KINDS:
                     c = _period(caches[ci], i)
-                    if collect is not None and s.kind == "rwkv":
+                    if collect is not None and s.kind in CARRY_KINDS:
                         col = collect.setdefault(ci, [])
                     ci += 1
                 sp = _period(layer_params[pos][si], i)
@@ -589,7 +626,7 @@ def _run_stack(layer_params, pattern, cfg: ModelConfig, x: torch.Tensor,
                 else:
                     x, a = _apply_sub(
                         sp, s, cfg, x, positions, c,
-                        rwkv_lengths if s.kind == "rwkv" else lengths,
+                        carry_lengths if s.kind in CARRY_KINDS else lengths,
                         active, serving, want_aux, col)
                 if a is not None:
                     aux = a if aux is None else aux + a
@@ -697,8 +734,8 @@ def decode_step(params: Params, cfg: ModelConfig, inputs: dict,
 
     ``active`` (per-slot caches only): (B,) host bools, the rows whose slot
     holds an in-flight request. The other rows compute (their logits mean
-    nothing) but write no K/V or RWKV carries and keep their position: a
-    free or a prefilling slot is left bit-unchanged."""
+    nothing) but write no K/V or recurrent carries and keep their
+    position: a free or a prefilling slot is left bit-unchanged."""
     check_supported(cfg)
     B = inputs["tokens"].shape[0]
     if active is not None:
@@ -720,7 +757,7 @@ def decode_step(params: Params, cfg: ModelConfig, inputs: dict,
 
 def advance_pos(caches: tuple, active=None) -> tuple:
     """Increment every attention cache's position by one: everywhere, or
-    (per-slot caches) on the rows where ``active`` is True. RWKV caches
+    (per-slot caches) on the rows where ``active`` is True. Carry caches
     have no position."""
     step = 1 if active is None else torch.as_tensor(active).to(torch.int32)
     return tuple({**c, "pos": c["pos"] + step} if "pos" in c else c
@@ -749,9 +786,8 @@ def prefill_call_bound(cfg: ModelConfig, max_len: int) -> int:
 
 def supports_slot_serving(cfg: ModelConfig) -> bool:
     """Whether the continuous-batching engine can drive this architecture:
-    the reference's rule, any decoder-only token-prompt stack. (Building
-    one whose kinds this slice does not port, ``mamba``, still raises
-    ``NotImplementedError``.)"""
+    the reference's rule, any decoder-only token-prompt stack of the kinds
+    this slice ports (attention, MLP, MoE, RWKV and Mamba)."""
     kinds = {s.kind for layer in cfg.pattern for s in layer}
     return (cfg.input_mode == "tokens" and not cfg.n_enc_layers
             and kinds <= {"attn", "mlp", "moe", "mamba", "rwkv"})
@@ -769,9 +805,10 @@ def _zero_rows(caches: tuple, rows: torch.Tensor) -> None:
 
 def reset_cache_slots(caches: tuple, free_mask) -> tuple:
     """Free the cache rows where ``free_mask`` (B,) is True: their K/V,
-    scales and RWKV carries are zeroed in place and their positions set to
-    0 (which alone hides the old K/V from every later read; the zeros keep
-    no request's data in a free slot, and are an RWKV row's fresh state)."""
+    scales and recurrent carries are zeroed in place and their positions
+    set to 0 (which alone hides the old K/V from every later read; the
+    zeros keep no request's data in a free slot, and are a carry row's
+    fresh state)."""
     batch = next(v for c in caches for k, v in c.items() if k != "pos")
     free = _host_rows(free_mask, batch.shape[1])
     rows = torch.nonzero(free).flatten()
@@ -784,8 +821,8 @@ def reset_cache_slots(caches: tuple, free_mask) -> tuple:
 
 def splice_row_pos(caches: tuple, rows: tuple, slot: int) -> tuple:
     """``caches`` with slot ``slot``'s positions taken from the batch-of-1
-    ``rows`` (:func:`cache_row` views, written already: K/V and RWKV
-    carries need no copy, and an RWKV cache has no position)."""
+    ``rows`` (:func:`cache_row` views, written already: K/V and recurrent
+    carries need no copy, and a carry cache has no position)."""
     out = []
     for c, r in zip(caches, rows):
         if "pos" not in c:
@@ -799,7 +836,7 @@ def splice_row_pos(caches: tuple, rows: tuple, slot: int) -> tuple:
 
 def cache_row(caches: tuple, slot: int) -> tuple:
     """One slot's row of per-slot caches as batch-of-1 VIEWS, positions
-    included: what a call writes into the row (K/V, RWKV carries) lands in
+    included: what a call writes into the row (K/V, carries) lands in
     the caches, so a prefill chunk needs no splice (the prefix cache's
     copies are :func:`extract_cache_row` and :func:`adopt_prefix`)."""
     return tuple({k: v[:, slot:slot + 1] for k, v in c.items()}
@@ -816,8 +853,8 @@ def prefill_step(params: Params, cfg: ModelConfig, inputs: dict,
     integers, the chunks' true lengths (<= Tc); active: (B,) host bools,
     the rows admitted by this call (default all). With ``resume=False`` an
     active row restarts at position 0 (its ring slots ``0..len-1`` take the
-    chunk's K/V; position arithmetic hides the rest) and its RWKV carries
-    are zeroed; with ``resume=True`` (chunks 2..n of a long prompt) it
+    chunk's K/V; position arithmetic hides the rest) and its recurrent
+    carries are zeroed; with ``resume=True`` (chunks 2..n of a long prompt) it
     continues at its position and from its carries, which the chunk's pads
     leave unchanged and which are taken at its last real token. Inactive
     rows are not written and keep their positions. Returns (logits (B, V)
@@ -858,7 +895,7 @@ def extract_cache_row(caches: tuple, slot: int, length: int | None = None
     ``min(p, S)`` slots of each leaf are copied; on a wrapped ring (``p >
     S``), and with no ``length``, the whole ring is. :func:`adopt_prefix`
     writes the zeros back, so a trimmed row adopts to the same bytes as a
-    whole one. An RWKV row (its carries and state) is copied whole."""
+    whole one. A carry row (RWKV's or Mamba's) is copied whole."""
     out = []
     for c in caches:
         if "pos" not in c:
@@ -906,8 +943,7 @@ def supports_speculation(cfg: ModelConfig) -> bool:
     """Whether the speculative verify step can drive this architecture: the
     reference's rule, slot serving plus a rollback rule for every cached
     sublayer kind (attention rings roll back their rejected writes; RWKV
-    keeps a checkpoint per token and commits the accepted one, as the
-    reference's mamba will, with queue 1's item 3)."""
+    and Mamba keep a checkpoint per token and commit the accepted one)."""
     return (supports_slot_serving(cfg)
             and set(cache_layer_kinds(cfg)) <= {"attn", "mamba", "rwkv"})
 
@@ -927,7 +963,7 @@ def save_ring_slots(caches: tuple, n, carries: bool = True) -> tuple:
     position (host integers, ``0`` for a row that writes nothing): the
     pre-call bytes of every ring slot it will write, from every leaf over
     all periods at once (one gather per leaf), with the pre-call
-    positions. An RWKV cache, which has no ring, saves the whole rows with
+    positions. A carry cache, which has no ring, saves the whole rows with
     ``n[b] > 0`` (one gather per leaf), or nothing (None) without
     ``carries``: a verify call writes none of them and commits its own
     checkpoints (:func:`commit_verify_caches`).
@@ -940,7 +976,7 @@ def save_ring_slots(caches: tuple, n, carries: bool = True) -> tuple:
             if not carries or not len(rows):
                 saved.append(None)
                 continue
-            idx = host_to(rows, c["state"].device)
+            idx = host_to(rows, _leaf_device(c))
             saved.append({"rows": rows, "carries": {
                 k: v.index_select(1, idx) for k, v in c.items()}})
             continue
@@ -959,9 +995,9 @@ def restore_ring_slots(caches: tuple, saved: tuple, keep) -> tuple:
     integers): the slots that tokens ``t >= keep[b]`` wrote get their saved
     bytes back, in place (nothing is written when every row keeps all its
     tokens), and the positions become the saved ones plus ``keep``.
-    ``keep`` of zeros undoes the call. An RWKV cache's saved rows come back
+    ``keep`` of zeros undoes the call. A carry cache's saved rows come back
     whole where ``keep`` is 0 (carries cannot keep a part of a call); its
-    other rows, and an RWKV cache that saved nothing, pass through."""
+    other rows, and a carry cache that saved nothing, pass through."""
     keep = torch.as_tensor(keep).to("cpu", torch.int64).reshape(-1)
     out = []
     for c, sv in zip(caches, saved):
@@ -969,7 +1005,7 @@ def restore_ring_slots(caches: tuple, saved: tuple, keep) -> tuple:
             back = None if sv is None or "carries" not in sv \
                 else keep[sv["rows"]] == 0
             if back is not None and bool(back.any()):
-                dev = c["state"].device
+                dev = _leaf_device(c)
                 rows = host_to(sv["rows"][back], dev)
                 sel = host_to(torch.nonzero(back).flatten(), dev)
                 for name, vals in sv["carries"].items():
@@ -998,12 +1034,12 @@ def verify_forward(params: Params, cfg: ModelConfig, inputs: dict,
     a pad write would wrap over live K/V the real columns read).
     ``active`` (B,) host bools (default all): an inactive row writes
     nothing. The real columns' K/V is written into the rings in place and
-    the positions are not advanced; the RWKV caches are not written (the
-    pad columns' checkpoints repeat the last real one's). Returns (logits
+    the positions are not advanced; the carry caches are not written (the
+    pad columns' scan states repeat the last real one's). Returns (logits
     (B, T, V) f32, where position ``t`` scores the next token after input
     token ``t``, and ``old``: per cache, :func:`save_ring_slots` of the
     slots the call wrote, or ``{"steps": {leaf: (n_periods, B, T, ...)}}``,
-    an RWKV cache's per-token checkpoints, stacked), which
+    a carry cache's per-token checkpoints, stacked), which
     :func:`commit_verify_caches` needs to keep only the accepted tokens."""
     check_supported(cfg)
     B, T = inputs["tokens"].shape
@@ -1030,7 +1066,7 @@ def commit_verify_caches(raw_caches: tuple, old: tuple, accept,
     ``accept`` (B,) host integers in ``[1, T]``: how many of the call's
     input tokens each row keeps. The ring slots written by rejected tokens
     get their pre-call bytes back, in place, and the positions advance by
-    ``accept`` only; an RWKV cache takes, in place, each row's checkpoint
+    ``accept`` only; a carry cache takes, in place, each row's checkpoint
     after its token ``accept - 1`` (the state the sequential decode would
     hold). An inactive row keeps its position and its carries (it wrote
     nothing)."""
@@ -1044,7 +1080,7 @@ def commit_verify_caches(raw_caches: tuple, old: tuple, accept,
             continue
         if idx is None:       # (row, its accepted token's index), one copy
             idx = host_to(torch.stack([rows, keep[rows] - 1]),
-                          c["state"].device)
+                          _leaf_device(c))
         for name, leaf in c.items():      # one gather a leaf, all periods
             leaf.index_copy_(1, idx[0], sv["steps"][name][:, idx[0], idx[1]])
     return restore_ring_slots(raw_caches, old, keep)

@@ -7,8 +7,8 @@ invariant the serving stack already guarantees: a slot's cache row after
 prefilling tokens ``t[0:p]`` on the engine's prefill-chunk grid is a PURE
 function of those tokens and the grid — pads never leak into attention
 rings (pad writes are suppressed and ring validity derives from ``pos``)
-or RWKV carries (pads leave the state unchanged and the carries are taken
-at the last real token), and chunk plans are a function of prompt length,
+or recurrent carries, RWKV's and Mamba's (pads leave the state unchanged
+and the carries are taken at the last real token), and chunk plans are a function of prompt length,
 never scheduling. So a
 row snapshotted at a chunk boundary
 (:func:`repro_torch.models.transformer.extract_cache_row`) can be copied
@@ -50,7 +50,7 @@ class PrefixNode:
 
     ``row`` is the batch-of-1 cache row snapshotted by
     ``extract_cache_row`` (attention K/V rings at ``pos == len(key)``,
-    RWKV carries after ``len(key)`` tokens). ``refs`` pins the node against
+    RWKV or Mamba carries after ``len(key)`` tokens). ``refs`` pins the node against
     eviction while an adopting request is still prefilling; ``stamp`` is
     the LRU clock value of the last lookup hit or insert.
     """

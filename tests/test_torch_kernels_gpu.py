@@ -6,9 +6,10 @@ attention kernel is held within a tolerance instead
 (``flash_attention.flash_errors``): its products accumulate in another
 order and its 128-key tiles (bf16; 64 in f32) round ``p`` to bf16 against
 another running max than the plain version's 512-key tiles; so are
-``ring_attention`` and the WKV recurrence (``wkv.wkv_errors``: fused
-multiply-adds and another order of the sums over k), each of which gives
-a token the same bits in any call, bitwise. The seeded
+``ring_attention``, the WKV recurrence (``wkv.wkv_errors``: fused
+multiply-adds and another order of the sums over k) and the Mamba scan
+(``mamba_scan.scan_errors``: another order of y's sum over n), each of
+which gives a token the same bits in any call, bitwise. The seeded
 weights are held between the card and the CPU. The file imports
 no JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
@@ -22,8 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (block_combine, flash_attention, quantize,
-                                 ref, ring_attention, wkv)
+from repro_torch.kernels import (block_combine, flash_attention,
+                                 mamba_scan, quantize, ref, ring_attention,
+                                 wkv)
 from repro_torch.launch import step_fns
 
 pytestmark = pytest.mark.gpu
@@ -1250,4 +1252,216 @@ def test_rwkv_slot_steps_give_a_token_the_same_bits_in_any_call(cuda):
         _assert_bitwise(logits[t], vl[:, t])
     for a, b in zip(dec, ver):
         for n in names:
+            _assert_bitwise(a[n], b[n])
+
+
+def test_ring_attention_same_bits_at_the_jamba_heads(cuda):
+    """Jamba's 32 query heads over 8 K/V heads of 128 (4 a K/V head), over
+    a wrapped ring of 4096 (TMA) and one with the engine's draft slack
+    (cp.async): the calls of ``ring_attention.same_bits_pairs`` give
+    bitwise the same outputs, within the tolerance of the plain version."""
+    rng = np.random.default_rng(9)
+    first = torch.tensor([5000, 6100, 4200, 8000], device=cuda) - 37
+    for S in (4096, 4100):
+        q, k, v = _ring_case(rng, 4, 512, 32, 8, 128, S, "bf16", cuda)
+        for what, one, got in ring_attention.same_bits_pairs(q, k, v, first,
+                                                             None):
+            _assert_bitwise(one, got)
+        plan = torch.stack([first, torch.full_like(first, 512)])
+        got = ring_attention.ring_attention(q, k, v, plan)
+        want = ref.ring_attention_ref(q, k, v, plan)
+        keep = ring_attention.valid(plan, 512, S)
+        _check_ring_close(got, want, keep.to(cuda), torch.bfloat16)
+
+
+# ------------------------------------------------------------ mamba_scan
+
+def _scan_case(rng, B, T, Di, N, device, masked=False):
+    """dt (a softplus's range), dtx, B, C, A (negative), a nonzero state,
+    all f32, and a (B, T) valid mask (every token valid unless
+    ``masked``)."""
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    dt = f32(np.log1p(np.exp(rng.standard_normal((B, T, Di)) - 3)))
+    dtx = dt * f32(rng.standard_normal((B, T, Di)))
+    Bm, C = (f32(rng.standard_normal((B, T, N))) for _ in range(2))
+    A = -f32(np.tile(np.arange(1, N + 1), (Di, 1)) * np.exp(
+        rng.standard_normal((Di, 1)) * 0.3))
+    S = f32(rng.standard_normal((B, Di, N)) * 0.3)
+    valid = torch.from_numpy(rng.random((B, T)) < (0.8 if masked else 2.0))
+    return dt, dtx, Bm, C, A, S, valid.to(device)
+
+
+@pytest.mark.parametrize("collect", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T", [1, 5, 33, 1024])
+@pytest.mark.parametrize("N,Di", [(8, 128), (16, 8192)])
+def test_mamba_scan_matches_plain(N, Di, T, masked, collect, cuda):
+    rng = np.random.default_rng(N * 7 + T)
+    B = 3 if T < 1024 or Di < 8192 else 1
+    dt, dtx, Bm, C, A, S, valid = _scan_case(rng, B, T, Di, N, cuda, masked)
+    m = valid if masked else None
+    before = mamba_scan.mamba_scan.launches
+    y, st = mamba_scan.mamba_scan(dt, dtx, Bm, C, A, S, m, collect)
+    assert mamba_scan.mamba_scan.launches == before + 1
+    assert y.shape == (B, T, Di)
+    assert st.shape == ((B, T, Di, N) if collect else (B, Di, N))
+    e_y, e_s = mamba_scan.scan_errors((y, st), dt, dtx, Bm, C, A, S, m,
+                                      collect)
+    assert e_y <= mamba_scan.SCAN_TOL and \
+        e_s <= mamba_scan.SCAN_STATE_TOL, (e_y, e_s)
+    if collect and masked:
+        # a pad leaves the state bit-unchanged
+        prev = torch.cat([S[:, None], st[:, :-1]], 1)
+        _assert_bitwise(st[~valid], prev[~valid])
+
+
+@pytest.mark.parametrize("N,Di", [(8, 128), (16, 8192)])
+def test_mamba_scan_gives_a_token_the_same_bits_in_any_call(N, Di, cuda):
+    """A row of 1,024 tokens with pads (Jamba's 8192 channels of 16 states,
+    the reduced 128 of 8): the call of all of it, the collecting call,
+    calls of 1, 5, 31, 32 and 33 tokens and of 1,000 then 24 threading the
+    state, the row beside 7 and 15 other rows (B = 8, 16) and beside rows
+    with other masks give each token's y and state bitwise the same; each
+    row lies within ``SCAN_TOL`` and ``SCAN_STATE_TOL`` of the plain
+    version."""
+    T = 1024
+    rng = np.random.default_rng(13 + N)
+    dt, dtx, Bm, C, A, S, valid = _scan_case(rng, 16, T, Di, N, cuda,
+                                             masked=True)
+    one = [x[:1] for x in (dt, dtx, Bm, C)]
+    S1, m1 = S[:1], valid[:1]
+    y, st = mamba_scan.mamba_scan(*one, A, S1, m1)
+    yc, states = mamba_scan.mamba_scan(*one, A, S1, m1, collect=True)
+    _assert_bitwise(yc, y)
+    _assert_bitwise(states[:, -1], st)
+    e_y, e_s = mamba_scan.scan_errors((yc, states), *one, A, S1, m1,
+                                      collect=True)
+    assert e_y <= mamba_scan.SCAN_TOL and \
+        e_s <= mamba_scan.SCAN_STATE_TOL, (e_y, e_s)
+    cuts = {n: list(range(0, T, n)) for n in (1, 5, 31, 32, 33)}
+    cuts["1000+24"] = [0, 1000]
+    for n, starts in cuts.items():
+        state, outs = S1, []
+        for t0, t1 in zip(starts, starts[1:] + [T]):
+            part, state = mamba_scan.mamba_scan(
+                *(x[:, t0:t1].contiguous() for x in one), A, state,
+                m1[:, t0:t1].contiguous())
+            outs.append(part)
+            _assert_bitwise(state, states[:, t1 - 1])
+        _assert_bitwise(torch.cat(outs, 1), y)
+    rows = {}
+    for B in (8, 16):
+        rows[B] = mamba_scan.mamba_scan(dt[:B], dtx[:B], Bm[:B], C[:B], A,
+                                        S[:B], valid[:B])
+        _assert_bitwise(rows[B][0][:1], y)
+        _assert_bitwise(rows[B][1][:1], st)
+    _assert_bitwise(rows[16][0][:8], rows[8][0])
+    _assert_bitwise(rows[16][1][:8], rows[8][1])
+    for b in range(16):
+        sl = slice(b, b + 1)
+        e_y, e_s = mamba_scan.scan_errors(
+            (rows[16][0][sl], rows[16][1][sl]), dt[sl], dtx[sl], Bm[sl],
+            C[sl], A, S[sl], valid[sl])
+        assert e_y <= mamba_scan.SCAN_TOL and \
+            e_s <= mamba_scan.SCAN_STATE_TOL, (b, e_y, e_s)
+    other = valid.clone()
+    other[1:] = ~other[1:]
+    moved = mamba_scan.mamba_scan(dt, dtx, Bm, C, A, S, other)
+    _assert_bitwise(moved[0][:1], y)
+    _assert_bitwise(moved[1][:1], st)
+
+
+def test_mamba_scan_builds_without_spills(cuda):
+    """ptxas spills no register of any instantiation."""
+    from repro_torch.kernels import _build
+    _build.load("mamba_scan", mamba_scan._SIGNATURES)
+    info = _build.ptxas_info("mamba_scan", "mamba_scan_kernel")
+    assert len(info) == 4
+    for line in info:
+        assert "0 bytes spill stores" in line and \
+            "0 bytes spill loads" in line, line
+
+
+def test_mamba_scan_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(14)
+    dt, dtx, Bm, C, A, S, valid = _scan_case(rng, 2, 5, 128, 16, cuda)
+    with pytest.raises(TypeError, match="f32"):
+        mamba_scan.mamba_scan(dt.bfloat16(), dtx, Bm, C, A, S)
+    with pytest.raises(ValueError, match="one cpu or cuda"):
+        mamba_scan.mamba_scan(dt, dtx, Bm, C, A.cpu(), S)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan.mamba_scan(dt.transpose(0, 1).contiguous().transpose(
+            0, 1), dtx, Bm, C, A, S)
+    shifted = torch.empty(dt.numel() + 1, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16 bytes"):
+        mamba_scan.mamba_scan(shifted.view(dt.shape).copy_(dt), dtx, Bm, C,
+                              A, S)
+    d4, x4, b4, c4, a4, s4, _ = _scan_case(rng, 2, 5, 128, 4, cuda)
+    with pytest.raises(ValueError, match="N in"):
+        mamba_scan.mamba_scan(d4, x4, b4, c4, a4, s4)
+    d8, x8, b8, c8, a8, s8, _ = _scan_case(rng, 2, 5, 24, 8, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mamba_scan.mamba_scan(d8, x8, b8, c8, a8, s8)
+    before = mamba_scan.mamba_scan.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        mamba_scan.mamba_scan(dt.clone().requires_grad_(), dtx, Bm, C, A, S)
+    assert mamba_scan.mamba_scan.launches == before
+    with torch.no_grad():
+        mamba_scan.mamba_scan(dt.clone().requires_grad_(), dtx, Bm, C, A, S)
+    assert mamba_scan.mamba_scan.launches == before + 1
+
+
+def test_jamba_slot_steps_give_a_token_the_same_bits_in_any_call(cuda):
+    """Reduced Jamba-v0.1 on the card (its rings and Mamba carries side by
+    side): five tokens through one verify call and through five decode
+    ticks leave the same caches and logits, and a prompt prefilled in
+    chunks of 16 leaves the caches of the same prompt in chunks of 64,
+    through the engine's prefill step; every call of a Mamba layer
+    launches the scan kernel."""
+    from repro_torch.configs.base import decode_config, get_config
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(
+        decode_config(get_config("jamba_v0_1_52b", reduced=True)),
+        moe=dataclasses.replace(get_config("jamba_v0_1_52b",
+                                           reduced=True).moe,
+                                capacity_factor=4.0))
+    params = tf.init_params(cfg, 0, cuda)
+    prefill = step_fns.make_prefill_step(cfg)
+    rng = np.random.default_rng(6)
+    caches = tf.init_cache(cfg, 4, 96, device=cuda, per_slot=True,
+                           ring_slack=8)
+    prompts = [rng.integers(1, cfg.vocab_size, 20 + 7 * s) for s in range(4)]
+    for slot in range(4):
+        caches = _prefill_all(prefill, params, caches, slot, prompts[slot],
+                              cuda)
+    whole = tf.init_cache(cfg, 4, 96, device=cuda, per_slot=True,
+                          ring_slack=8)
+    for slot in range(4):
+        whole = _prefill_all(prefill, params, whole, slot, prompts[slot],
+                             cuda, chunk=64)
+    for a, b in zip(caches, whole):
+        for n in a:
+            _assert_bitwise(a[n], b[n])
+    seq = torch.from_numpy(rng.integers(1, cfg.vocab_size, (4, 5))).to(cuda)
+    clone = lambda cs: tuple({n: t.clone() for n, t in c.items()}  # noqa
+                             for c in cs)
+    before = mamba_scan.mamba_scan.launches
+    with torch.no_grad():
+        dec, logits = clone(caches), []
+        for t in range(5):
+            lg, dec = tf.decode_step(params, cfg, {"tokens": seq[:, t:t + 1]},
+                                     dec, active=np.ones(4, bool))
+            logits.append(lg)
+        ver = clone(caches)
+        vl, old = tf.verify_forward(params, cfg, {"tokens": seq}, ver,
+                                    lengths=[5] * 4,
+                                    active=np.ones(4, bool))
+        ver = tf.commit_verify_caches(ver, old, [5] * 4, np.ones(4, bool))
+    mambas = tf.cache_layer_kinds(cfg).count("mamba") * cfg.n_periods
+    assert mamba_scan.mamba_scan.launches - before == 6 * mambas
+    for t in range(5):
+        _assert_bitwise(logits[t], vl[:, t])
+    for a, b in zip(dec, ver):
+        for n in a:
             _assert_bitwise(a[n], b[n])

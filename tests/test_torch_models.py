@@ -50,10 +50,11 @@ DTYPES = {"f32": (jnp.float32, torch.float32),
 TOL = {"f32": 1e-5, "f32_int8": 2.0 ** -7, "bf16": 6 * 2.0 ** -8}
 PORTED_ARCHS = ("minicpm_2b", "nemotron_4_15b", "granite_3_8b",
                 "minitron_8b")
-# ported too, held against the reference in tests/test_torch_moe.py and
-# tests/test_torch_rwkv.py
+# ported too, held against the reference in tests/test_torch_moe.py,
+# tests/test_torch_rwkv.py and tests/test_torch_mamba.py
 MOE_ARCHS = ("mixtral_8x22b", "llama4_scout_17b_a16e")
 RWKV_ARCHS = ("rwkv6_7b",)
+MAMBA_ARCHS = ("jamba_v0_1_52b",)
 
 
 def _tol(dt: str, kv_quant: bool = False) -> float:
@@ -133,7 +134,8 @@ def test_decode_config_is_the_dryrun_rule():
 
 
 @pytest.mark.parametrize("arch", sorted(set(ref_base.ARCHS) - set(PORTED_ARCHS)
-                                        - set(MOE_ARCHS) - set(RWKV_ARCHS)))
+                                        - set(MOE_ARCHS) - set(RWKV_ARCHS)
+                                        - set(MAMBA_ARCHS)))
 def test_unported_kinds_raise_naming_the_roadmap(arch):
     cfg = base.get_config(arch, reduced=True)
     for build in (lambda: tf.init_params(cfg, 0, "cpu"),

@@ -300,14 +300,14 @@ def test_prefill_equals_decode_at_full_capacity(arch):
 # --------------------------------------------------------------- refusals
 
 def test_check_supported_takes_moe_and_refuses_the_rest():
-    assert "moe" in tf.PORTED_KINDS and "rwkv" in tf.PORTED_KINDS
-    for arch in ARCHS + ("rwkv6_7b",):
+    assert {"moe", "rwkv", "mamba"} <= set(tf.PORTED_KINDS)
+    for arch in ARCHS + ("rwkv6_7b", "jamba_v0_1_52b"):
         for reduced in (False, True):
             cfg = base.get_config(arch, reduced=reduced)
             tf.check_supported(cfg)
             assert tf.supports_slot_serving(cfg)
             assert tf.supports_speculation(cfg)
-    for arch in ("jamba_v0_1_52b", "qwen2_vl_7b", "seamless_m4t_large_v2"):
+    for arch in ("qwen2_vl_7b", "seamless_m4t_large_v2"):
         cfg = base.get_config(arch, reduced=True)
         with pytest.raises(NotImplementedError, match="item 3"):
             tf.check_supported(cfg)
