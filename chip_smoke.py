@@ -222,8 +222,8 @@ kernels from ``src/repro_torch/kernels/csrc`` (one
    one, each alone, 16 new tokens each: the same carry bytes, the ring
    holding each prompt; one decode tick and one chunk traced; the scan
    timed at the decode tick's, 14a's step's, the verify call's and the
-   chunk's shapes beside its bound and its plain version; each part's
-   seconds.
+   chunk's shapes, each under the launch ``mamba_scan.plan`` gives it,
+   beside its bound and its plain version; each part's seconds.
 
 In phases 3, 5, 7, 8, 9, 10, 11, 12, 13 and 14 the kernels' launch
 counters are zeroed just before the main path and read just after, and
@@ -4734,10 +4734,13 @@ def scan_inputs(gen, B, T, Di, N, collect, dev) -> tuple:
 def scan_timings(dev, cfg) -> dict:
     """The kernel at the main path's shapes (14b's decode tick, 14a's step,
     the verify call and a 1024-token chunk, Jamba's 8192 channels of 16
-    states): against its plain version on the same inputs, timed (CUDA
-    events; at the ticks also the profiler's device time a launch) beside
-    its bound, the plain version's time and the wrapper's host cost a call;
-    fails if ptxas spilled a register of any instantiation."""
+    states), each under the launch ``mamba_scan.plan`` gives it (logged):
+    against its plain version on the same inputs, timed (CUDA events; at
+    the ticks and the verify call also the profiler's device time a
+    launch) beside its bound, the plain version's time and the wrapper's
+    host cost a call; fails if ptxas spilled a register of any of the
+    kernel's eight instantiations (the staged and the direct path, N 8 and
+    16, each with and without collect) or reported fewer."""
     m = cfg.mamba_cfg()
     Di, N = m.d_inner, m.d_state
     gen = torch.Generator(device=dev).manual_seed(26)
@@ -4754,11 +4757,12 @@ def scan_timings(dev, cfg) -> dict:
         abs_err = max(max_abs_err(got[0], want[0]),
                       max_abs_err(got[1], want[1]))
         t_k = time_ms(lambda: mamba_scan.mamba_scan(*args))
-        # a tick's back-to-back events read the host's launch cost: its
-        # device time a launch comes from the profiler
+        # a tick's and a verify call's back-to-back events read the host's
+        # launch cost: their device time a launch comes from the profiler
         dev_ms = device_ms(lambda: mamba_scan.mamba_scan(*args)) \
-            if T == 1 else None
+            if T == 1 or collect else None
         host = host_ms(lambda: mamba_scan.mamba_scan(*args))
+        launch = mamba_scan.plan(B, T, Di, N)._asdict()
         # the plain chunk is a Python loop of some 6,000 launches: one call
         t_p = time_ms(lambda: ref.mamba_scan_recurrent_ref(*args),
                       reps=1 if T > 8 else 20)
@@ -4766,7 +4770,8 @@ def scan_timings(dev, cfg) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_OPS_PER_S * 1e3
         out[what] = {"shape": [B, T, Di, N], "collect": collect, "ms": t_k,
-                     "device_ms": dev_ms, "host_ms": host, "plain_ms": t_p,
+                     "device_ms": dev_ms, "host_ms": host, "plan": launch,
+                     "plain_ms": t_p,
                      "library_ms": None, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations", "bytes": nbytes, "ops": nops,
@@ -4777,13 +4782,15 @@ def scan_timings(dev, cfg) -> dict:
             + f", wrapper's host cost {host * 1e3:.2f} us a call, plain "
             f"{t_p:.4f} ms, bound {out[what]['bound_ms']:.5f} ms "
             f"({out[what]['bound_by']}); errors y {e_y:.2e}, state "
-            f"{e_s:.2e}")
+            f"{e_s:.2e}; plan {json.dumps(launch)}")
         del args, got, want
-    ptxas = _build.ptxas_info("mamba_scan", "mamba_scan_kernel")
+    ptxas = [line for path in ("mamba_scan_staged", "mamba_scan_direct")
+             for line in _build.ptxas_info("mamba_scan", path)]
     spilled = [ln for ln in ptxas if "0 bytes spill stores" not in ln
                or "0 bytes spill loads" not in ln]
-    if spilled or not ptxas:
-        raise AssertionError(f"mamba_scan spills registers: {ptxas}")
+    if spilled or len(ptxas) != 4 * len(mamba_scan.D_STATES):
+        raise AssertionError(f"mamba_scan spills registers or lacks an "
+                             f"instantiation: {ptxas}")
     src, replaces = KERNEL_FILES["mamba_scan"]
     head = out["decode"]
     # a tick's time is its device time a launch, as wkv6's

@@ -1372,12 +1372,53 @@ def test_mamba_scan_gives_a_token_the_same_bits_in_any_call(N, Di, cuda):
     _assert_bitwise(moved[1][:1], st)
 
 
+@pytest.mark.parametrize("N,Di", [(8, 128), (16, 8192)])
+def test_mamba_scan_gives_the_same_bits_under_every_plan(N, Di, cuda,
+                                                         monkeypatch):
+    """Rows of 70 tokens with pads (B = 1, 8 and 16), collecting and not:
+    the launch forced to the direct path, to a staged tile of 1 token, a
+    small odd tile (7), 32 and the largest (64; 70 tokens leave a partial
+    last tile) and to channel groups of 16, 32 and 64 gives each token's y
+    and state bitwise the chosen plan's, which lies within ``SCAN_TOL``
+    and ``SCAN_STATE_TOL`` of the plain version; the order of y's sum
+    (``mamba_scan.ORDER``) is N's alone."""
+    T = 70
+    rng = np.random.default_rng(21 + N)
+    dt, dtx, Bm, C, A, S, valid = _scan_case(rng, 16, T, Di, N, cuda,
+                                             masked=True)
+    forced = [dict(tile=1, channels=16), dict(tile=7, channels=32),
+              dict(tile=64, channels=64), dict(tile=32, channels=16),
+              dict(tile=7, channels=64), dict(staged=False, channels=16),
+              dict(staged=False)]
+    chosen = mamba_scan.plan
+    for B in (1, 8, 16):
+        args = (dt[:B], dtx[:B], Bm[:B], C[:B], A, S[:B], valid[:B])
+        for collect in (False, True):
+            want = mamba_scan.mamba_scan(*args, collect=collect)
+            e_y, e_s = mamba_scan.scan_errors(want, *args, collect=collect)
+            assert e_y <= mamba_scan.SCAN_TOL and \
+                e_s <= mamba_scan.SCAN_STATE_TOL, (B, collect, e_y, e_s)
+            for kw in forced:
+                p = chosen(B, T, Di, N, **kw)
+                assert (p.stages == 0) == (kw.get("staged") is False)
+                assert p.tile == kw.get("tile", 1)
+                assert p.channels == kw.get("channels", p.channels)
+                assert (p.quad, p.lanes) == mamba_scan.ORDER[N]
+                with monkeypatch.context() as m:
+                    m.setattr(mamba_scan, "plan", lambda *a, **kw: p)
+                    got = mamba_scan.mamba_scan(*args, collect=collect)
+                _assert_bitwise(got[0], want[0])
+                _assert_bitwise(got[1], want[1])
+
+
 def test_mamba_scan_builds_without_spills(cuda):
-    """ptxas spills no register of any instantiation."""
+    """ptxas spills no register of any instantiation (the staged and the
+    direct path, N 8 and 16, each with and without collect)."""
     from repro_torch.kernels import _build
     _build.load("mamba_scan", mamba_scan._SIGNATURES)
-    info = _build.ptxas_info("mamba_scan", "mamba_scan_kernel")
-    assert len(info) == 4
+    info = [line for path in ("mamba_scan_staged", "mamba_scan_direct")
+            for line in _build.ptxas_info("mamba_scan", path)]
+    assert len(info) == 4 * len(mamba_scan.D_STATES)
     for line in info:
         assert "0 bytes spill stores" in line and \
             "0 bytes spill loads" in line, line

@@ -182,6 +182,65 @@ def test_scan_errors_pass_the_plain_version_and_catch_wrong_ones():
             e_s > mamba_scan.SCAN_STATE_TOL, (what, e_y, e_s)
 
 
+@pytest.mark.parametrize("N", mamba_scan.D_STATES)
+def test_kernel_plan_covers_every_state_once_in_an_order_fixed_by_n(N):
+    """``mamba_scan.plan``, the kernel's launch, for B in 1..16, T at and
+    around the direct path's 8 tokens, a warp's 32 and a chunk's 1,024, Di
+    128 and 8192: its blocks' threads own every (row, channel, quad of
+    states) exactly once (``mamba_scan.state_quads``, the kernel's thread map),
+    the order of y's sum (``ORDER``: 4 states a lane, then the butterfly
+    over N / 4 lanes) is N's alone, the threads are whole warps, the tile
+    is 1 to ``min(T, 64)`` tokens and the shared memory fits the card's
+    227 KB; short calls take the direct path (no stages, no shared
+    memory), and one row of Jamba's 8192 channels still fills the card. A
+    forced plan is honoured; what the kernel does not take raises."""
+    assert mamba_scan.ORDER[N] == (4, N // 4)
+    maps = {}
+    for Di in (128, 8192):
+        for B in range(1, 17):
+            for T in (1, 5, 8, 9, 31, 32, 33, 1024):
+                p = mamba_scan.plan(B, T, Di, N)
+                assert (p.quad, p.lanes) == mamba_scan.ORDER[N]
+                assert p.channels in mamba_scan.CHANNELS
+                assert Di % p.channels == 0
+                assert p.threads == p.channels * p.lanes
+                assert p.threads % 32 == 0 and p.threads <= 256
+                assert 1 <= p.tile <= min(T, mamba_scan.MAX_TILE)
+                if T <= mamba_scan.DIRECT_TOKENS:
+                    assert (p.tile, p.stages, p.smem) == (1, 0, 0)
+                    assert p.threads <= mamba_scan.DIRECT_THREADS
+                else:
+                    assert p.stages == min(-(-T // p.tile), 3)
+                    assert 0 < p.smem <= mamba_scan.MAX_SMEM
+                assert p.blocks == B * Di // p.channels
+                maps[(B, Di, p.channels)] = p
+    for (B, Di, _), p in maps.items():
+        own = mamba_scan.state_quads(p, B, Di)
+        assert own.shape == (p.blocks * p.threads, 3)
+        slot = (own[:, 0] * Di + own[:, 1]) * N + own[:, 2]
+        assert (own[:, 2] % p.quad == 0).all()
+        counts = torch.bincount(slot // p.quad, minlength=B * Di * N // 4)
+        assert (counts == 1).all(), p
+    chunk = mamba_scan.plan(1, 1024, 8192, N)
+    assert chunk.blocks >= mamba_scan.MIN_BLOCKS
+    assert chunk.tile == mamba_scan.MAX_TILE and chunk.stages == 3
+    forced = mamba_scan.plan(1, 1024, 8192, N, tile=7, channels=16)
+    assert (forced.tile, forced.channels, forced.blocks) == (7, 16, 512)
+    assert (forced.quad, forced.lanes) == mamba_scan.ORDER[N]
+    assert mamba_scan.plan(8, 1, 8192, N, staged=True).stages == 1
+    assert mamba_scan.plan(1, 1024, 8192, N, staged=False).stages == 0
+    with pytest.raises(ValueError, match="N in"):
+        mamba_scan.plan(1, 8, 128, 4)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mamba_scan.plan(1, 8, 24, N)
+    with pytest.raises(ValueError, match="channels"):
+        mamba_scan.plan(1, 8, 48, N, channels=32)
+    with pytest.raises(ValueError, match="tile"):
+        mamba_scan.plan(1, 80, 128, N, tile=65)
+    with pytest.raises(ValueError, match="a token at a time"):
+        mamba_scan.plan(1, 80, 128, N, tile=8, staged=False)
+
+
 def test_softplus_and_the_a_log_ladder_are_the_references():
     x = np.concatenate([np.linspace(-30, 30, 2001),
                         np.random.default_rng(4).standard_normal(999) * 5]
